@@ -10,6 +10,7 @@ from viterbi_tpu.harness import channel
 from viterbi_tpu.runtime import config as jax_config
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.ops import acs_cuda
+from viterbi_tpu_torch.ops import traceback as tb
 from viterbi_tpu_torch.runtime import config as config_mod
 from viterbi_tpu_torch.runtime import dispatch
 
@@ -23,7 +24,28 @@ def _fresh_config(tmp_path, monkeypatch):
     viterbi_tpu.initialize()
     viterbi_tpu_torch.initialize()
     yield
+    jax_cfg.write_text("a:0\ncompile_cache=0\n")   # _jax_rung may have set one
+    viterbi_tpu.initialize()
     viterbi_tpu_torch.initialize()
+
+
+@pytest.fixture
+def kernels_on_cpu(monkeypatch):
+    """Report the kernels as built on a CPU-only host, so the dispatcher
+    offers every rung; the kernels then run as their plain versions."""
+    real = dispatch.get_caps
+    monkeypatch.setattr(dispatch, "get_caps",
+                        lambda root=None: real(root) | dispatch.CAP_KERNELS)
+    viterbi_tpu_torch.initialize()
+
+
+def _jax_rung(index: int) -> None:
+    """Select the JAX package's rung ``index``, Pallas in interpret mode."""
+    path = jax_config.default_path()
+    with open(path, "w") as f:
+        f.write(f"{index}:0\ninterpret=1\ncompile_cache=0\n")
+    viterbi_tpu.initialize()
+    assert viterbi_tpu.runtime.dispatch.state().variant == index
 
 
 @pytest.fixture
@@ -56,7 +78,8 @@ def test_deconvolve_batch_fused_matches_jax(framebits, fused_on_cpu):
         == want.tobytes()
 
 
-@pytest.mark.parametrize("rung", ["torch_scan", "cuda_fused"])
+@pytest.mark.parametrize("rung", ["torch_scan", "torch_blocked", "cuda_words",
+                                  "cuda_fused"])
 @pytest.mark.parametrize("framebits", [13, 96])
 def test_deconvolve_batch_packed_matches_jax(framebits, rung):
     syms = _syms(framebits)
@@ -101,6 +124,82 @@ def test_fault_latch_and_rearm():
     assert dispatch.state().safe_mode
 
 
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("framebits", [96, 64, 13])
+@pytest.mark.parametrize("rung,jax_rung", [
+    ("torch_scan", "jax_scan"), ("torch_blocked", "jax_blocked"),
+    ("cuda_words", "pallas")])
+def test_rung_matches_jax_rung(rung, jax_rung, framebits, packed,
+                               kernels_on_cpu):
+    """Each rung of the port against its counterpart in the JAX package
+    on the same frames, both selected through their config files: 96 is
+    on the 24-bit window grid, 64 takes the blocked fallback, 13 the
+    off-byte path."""
+    syms = _syms(framebits)
+    if packed:
+        syms = acs_cuda.pack_symbols_host(syms)
+    _jax_rung(viterbi_tpu.runtime.dispatch.VARIANTS.index(jax_rung))
+    r1, want = viterbi_tpu.deconvolve_batch(framebits, syms, packed=packed)
+    config_mod.write_variant(dispatch.VARIANTS.index(rung))
+    viterbi_tpu_torch.initialize()
+    assert dispatch.VARIANTS[dispatch.state().variant] == rung
+    r2, got = viterbi_tpu_torch.deconvolve_batch(framebits, syms,
+                                                 packed=packed)
+    assert r1 == r2 == 0 and np.array_equal(got, want)
+
+
+def test_rungs_route_through_the_kernel_wrappers(monkeypatch,
+                                                 kernels_on_cpu):
+    """With the kernels built, every rung's forward pass is kernel C's
+    wrapper (as the JAX rungs take the Pallas forward on the chip), and
+    cuda_words walks with kernel D's wrapper on the 24-bit grid."""
+    calls = []
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            calls.append(name)
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(acs_cuda, "forward")
+    spy(tb, "tb_words")
+    spy(tb, "chainback_blocked")
+    spy(tb, "chainback_scan")
+    syms = _syms(96)
+    for rung, walk in (("torch_scan", "chainback_scan"),
+                       ("torch_blocked", "chainback_blocked"),
+                       ("cuda_words", "tb_words")):
+        config_mod.write_variant(dispatch.VARIANTS.index(rung))
+        viterbi_tpu_torch.initialize()
+        calls.clear()
+        assert viterbi_tpu_torch.deconvolve_batch(96, syms)[0] == 0
+        assert calls == ["forward", walk], (rung, calls)
+    calls.clear()
+    assert viterbi_tpu_torch.deconvolve_batch(64, _syms(64))[0] == 0
+    assert calls == ["forward", "chainback_blocked"]   # off the 24-bit grid
+
+
+def test_traceback_block_key_picks_the_block(tmp_path, monkeypatch):
+    blocks = []
+    real = tb.chainback_blocked
+    monkeypatch.setattr(tb, "chainback_blocked", lambda d, fb, block:
+                        blocks.append(block) or real(d, fb, block=block))
+    syms = _syms(96)
+    path = config_mod.default_path()
+    for line, want in (("", 48), ("traceback_block=32", 32),
+                       ("traceback_block=3", 8),   # the floor is 8
+                       ("traceback_block=x", 48),
+                       ("traceback_block=24", 24)):
+        with open(path, "w") as f:
+            f.write(f"1:0\n{line}\n")
+        viterbi_tpu_torch.initialize()
+        blocks.clear()
+        assert viterbi_tpu_torch.deconvolve_batch(96, syms)[0] == 0
+        assert blocks == [want], line
+
+
 def test_kernel_fault_latches(monkeypatch, fused_on_cpu):
     """An exception inside the decode path latches safe mode."""
     def boom(*a, **k):
@@ -127,20 +226,26 @@ def test_validation_error_does_not_latch():
 def test_config_downgrade_and_upgrade_rules():
     st = dispatch.state()
     auto = st.variant
-    assert dispatch.VARIANTS[auto] == "torch_scan"     # no CUDA device here
-    assert st.caps & dispatch.CAP_TORCH
+    # no CUDA device here: torch_blocked, as the JAX package picks
+    # jax_blocked off the TPU
+    assert dispatch.VARIANTS[auto] == "torch_blocked"
+    assert viterbi_tpu.runtime.dispatch.VARIANTS[
+        viterbi_tpu.runtime.dispatch.state().variant] == "jax_blocked"
+    assert st.caps & dispatch.CAP_TORCH and st.caps & dispatch.CAP_BLOCKED_TB
     assert not st.caps & (dispatch.CAP_CUDA | dispatch.CAP_KERNELS)
     for forced in (0, 1, 2, 3, 4):
         config_mod.write_variant(forced)
         viterbi_tpu_torch.initialize()
-        # only torch_scan is supported here; everything else keeps auto
-        assert st.variant == (0 if forced == 0 else auto)
-    # with the kernels built, cuda_fused is best and a downgrade holds
-    caps = dispatch.CAP_TORCH | dispatch.CAP_CUDA | dispatch.CAP_KERNELS
+        # the torch rungs are supported here; the kernel rungs keep auto
+        assert st.variant == (forced if forced in (0, 1) else auto)
+    # with the kernels built, cuda_fused is best, cuda_words is never
+    # picked on its own, and every downgrade holds
+    caps = dispatch.CAP_TORCH | dispatch.CAP_BLOCKED_TB \
+        | dispatch.CAP_CUDA | dispatch.CAP_KERNELS
     assert dispatch.VARIANTS[dispatch._best_variant(caps)] == "cuda_fused"
-    assert dispatch._variant_supported(0, caps)
-    assert not dispatch._variant_supported(1, caps)   # not ported yet
-    assert not dispatch._variant_supported(2, caps)
+    for index in (0, 1, 2, 3):
+        assert dispatch._variant_supported(index, caps)
+    assert dispatch._best_variant(dispatch.CAP_TORCH) == 1
 
 
 def test_config_banner_and_template(tmp_path, capsys):
@@ -158,9 +263,12 @@ def test_config_banner_and_template(tmp_path, capsys):
 def test_config_keys(tmp_path):
     p = tmp_path / "keys.txt"
     p.write_text("a:0\ncompile_cache=/somewhere/kernels\nlog_calls=1\n"
-                 "unknown_key=5\n")
+                 "unknown_key=5\ntraceback_block=32\n")
     cfg = config_mod.load(str(p))
     assert cfg.compile_cache == "/somewhere/kernels" and cfg.log_calls
+    assert cfg.traceback_block == 32
+    assert config_mod.Config().traceback_block == 64
+    assert "traceback_block=64" in config_mod._TEMPLATE
     p.write_text("a:0\ncompile_cache=0\n")
     assert config_mod.load(str(p)).compile_cache \
         == config_mod.Config().compile_cache
@@ -183,7 +291,10 @@ def test_wake_up_ladder():
 
 
 def test_get_caps_on_cpu():
-    assert viterbi_tpu_torch.get_caps() == dispatch.CAP_TORCH
+    # bit 1, the block-parallel traceback, is always set (as in the JAX
+    # package); the kernel bits need a card
+    assert viterbi_tpu_torch.get_caps() \
+        == dispatch.CAP_TORCH | dispatch.CAP_BLOCKED_TB == 0x3
 
 
 def test_calllog_and_symbol_capture(tmp_path):

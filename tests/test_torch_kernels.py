@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels against their plain torch versions on the
-card, bit for bit: the pytest twin of ``chip_smoke.py``'s kernel phase.
+card, bit for bit: the pytest twin of ``chip_smoke.py``'s kernel phase
+(kernels A and B of the fused path, C and D of the words path).
 
 Every test here needs a CUDA device and skips without one (through the
 ``cuda`` fixture). Run them on the card with
@@ -94,6 +95,59 @@ def test_wrap_last6_on_card_matches_cpu(cuda):
     want = tb.chainback_regs_cuda(regs.cpu(), 96, ckpt=24, tail=0,
                                   anchor=anc, wrap_last6=True)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("framebits,packed,with_init", [
+    (192, False, True), (768, "bt", False), (1536, True, True),
+    (3072, "bt", True), (3072, False, False), (9216, True, False),
+    (64, "bt", True), (96, False, False), (2328, True, True)])
+def test_acs_words_kernel_matches_plain(cuda, framebits, packed, with_init):
+    rng = np.random.default_rng(framebits)
+    syms = _symbols(rng, framebits, packed, cuda)
+    init = (torch.from_numpy(rng.integers(0, 256, (B, 64))
+                             .astype(np.int32)).to(cuda)
+            if with_init else None)
+    before = acs_cuda.forward.launches
+    d_k, m_k = acs_cuda.forward(syms, framebits + 6, init, packed=packed)
+    assert acs_cuda.forward.launches == before + 1
+    d_p, m_p = acs_cuda.forward_plain(syms, framebits + 6, init,
+                                      packed=packed)
+    assert torch.equal(d_k, d_p) and torch.equal(m_k, m_p)
+
+
+@pytest.mark.parametrize("framebits", [24, 48, 768, 2328, 9216])
+def test_tb_words_kernel_matches_plain(cuda, framebits):
+    rng = np.random.default_rng(framebits + 1)
+    dec, _ = acs_cuda.forward(_symbols(rng, framebits, "bt", cuda),
+                              framebits + 6, packed="bt")
+    noise = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (framebits + 9, B, 2), dtype=np.int64)
+        .astype(np.int32)).to(cuda)
+    for words in (dec, noise):
+        before = tb.tb_words.launches
+        got = tb.tb_words(words, framebits)
+        assert tb.tb_words.launches == before + 1
+        assert torch.equal(got, tb.tb_words_plain(words, framebits))
+
+
+def test_tb_words_rejects_off_window_framebits(cuda):
+    dec = torch.zeros((70, 8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="24"):
+        tb.tb_words(dec, 64)
+
+
+@pytest.mark.parametrize("framebits", [64, 3072])
+def test_words_decode_on_card_matches_golden(cuda, framebits):
+    _, syms = channel.make_frames(4, framebits, seed=framebits + 2)
+    expect = np.stack([golden.deconvolve(framebits, s) for s in syms])
+    dec, _ = acs_cuda.forward(torch.from_numpy(syms.astype(np.int32))
+                              .to(cuda), framebits + 6)
+    for got in (tb.chainback_blocked(dec, framebits, block=32),
+                tb.chainback_scan(dec, framebits)):
+        assert got.is_cuda and np.array_equal(got.cpu().numpy(), expect)
+    if framebits % 24 == 0:
+        got = tb.chainback_words_cuda(dec, framebits)
+        assert np.array_equal(got.cpu().numpy(), expect)
 
 
 @pytest.mark.parametrize("framebits", [32, 64, 3072])

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .ops import acs, acs_cuda, traceback
+from .ops import acs, acs_cuda
+from .ops import traceback as tb
 from .runtime import calllog, dispatch, faults
 
 _SAFE = faults.SAFE_MODE_RETVAL
@@ -115,7 +116,52 @@ def _decode_arbitrary(syms: torch.Tensor, framebits: int) -> torch.Tensor:
         # chainback reads (and the renorm cadence before them) are unchanged
         syms = torch.nn.functional.pad(syms, (0, C.RATE))
     decisions, _ = acs.forward(syms, nsteps + nsteps % 2)
-    return traceback.chainback_scan(decisions[:nsteps], framebits)
+    return tb.chainback_scan(decisions[:nsteps], framebits)
+
+
+def _block(framebits: int, block: int) -> int:
+    """The blocked traceback's block: ``block`` (config key
+    ``traceback_block``) where it divides framebits, else the largest
+    of 64, 48, 32, 24, 16, 8, 4, 2, 1 that does."""
+    if framebits % block == 0:
+        return block
+    return next(b for b in (64, 48, 32, 24, 16, 8, 4, 2, 1)
+                if framebits % b == 0)
+
+
+def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
+                   packed: bool = False) -> torch.Tensor:
+    """Decode symbols that already lie on the decode device through the
+    named rung: [B, 4*(framebits+6)] symbols, or frame-major packed words
+    (``packed=True``, ``cuda_fused`` only). Returns uint8[B,
+    ceil(framebits/8)] on that device."""
+    if variant == "cuda_fused" and framebits % 8 == 0:
+        # register-exchange ACS kernel + checkpoint-walk kernel
+        return acs_cuda.decode(syms, framebits,
+                               packed="bt" if packed else False)
+    if packed:
+        raise ValueError(f"{variant} reads unpacked symbols")
+    if framebits % 8:
+        return _decode_arbitrary(syms, framebits)
+    st = dispatch.state()
+    nsteps = framebits + C.TAIL_BITS
+    block = _block(framebits, st.config.traceback_block)
+    if variant == "cuda_words":
+        # decisions kernel + decision-word walk kernel; the blocked
+        # traceback covers sizes off the 24-bit window grid
+        decisions, _ = acs_cuda.forward(syms, nsteps)
+        if framebits % tb.WORDS_WINDOW == 0:
+            return tb.chainback_words_cuda(decisions, framebits)
+        return tb.chainback_blocked(decisions, framebits, block=block)
+    # the torch_* rungs are traceback strategies: their forward pass is
+    # the decisions kernel wherever the kernels are built
+    if st.caps & dispatch.CAP_KERNELS:
+        decisions, _ = acs_cuda.forward(syms, nsteps)
+    else:
+        decisions, _ = acs.forward(syms, nsteps)
+    if variant == "torch_blocked":
+        return tb.chainback_blocked(decisions, framebits, block=block)
+    return tb.chainback_scan(decisions, framebits)
 
 
 def _decode_batch(symbols: np.ndarray, framebits: int,
@@ -124,25 +170,15 @@ def _decode_batch(symbols: np.ndarray, framebits: int,
     symbols, or packed int32[B, framebits+6] words. Returns
     uint8[B, ceil(framebits/8)] packed bytes."""
     st = dispatch.state()
-    fused = dispatch.VARIANTS[st.variant] == "cuda_fused" \
-        and framebits % 8 == 0
-    if packed and not fused:
-        # the plain rungs read unpacked symbols: a host byte view
+    variant = dispatch.VARIANTS[st.variant]
+    if packed and not (variant == "cuda_fused" and framebits % 8 == 0):
+        # the other rungs read unpacked symbols: a host byte view
         symbols = np.ascontiguousarray(symbols, dtype=np.int32) \
             .view(np.uint8).reshape(symbols.shape[0], -1)
         packed = False
     syms = torch.from_numpy(np.ascontiguousarray(symbols, dtype=np.int32)) \
         .to(st.device)
-    if fused:
-        # register-exchange ACS kernel + checkpoint-walk kernel
-        out = acs_cuda.decode(syms, framebits,
-                              packed="bt" if packed else False)
-    elif framebits % 8:
-        out = _decode_arbitrary(syms, framebits)
-    else:
-        decisions, _ = acs.forward(syms, framebits + C.TAIL_BITS)
-        out = traceback.chainback_scan(decisions, framebits)
-    return out.cpu().numpy()
+    return _decode_tensor(syms, framebits, variant, packed).cpu().numpy()
 
 
 @faults.guarded(_SAFE)
@@ -186,7 +222,7 @@ def deconvolve_batch(framebits: int, symbols_batch,
     layout instead (int32[B, >= framebits+6], symbol j in byte j —
     ``ops.acs_cuda.pack_symbols_host``): a byte reinterpret of the DAB
     symbol stream that ships 4x fewer bytes per call, the production
-    ingest path. The fused kernel reads it in place; the plain rungs
+    ingest path. The fused kernel reads it in place; the other rungs
     unpack it with a host byte view.
     """
     if symbols_batch is None:

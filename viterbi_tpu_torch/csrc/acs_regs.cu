@@ -44,24 +44,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "trellis.cuh"
+
 namespace {
 
-constexpr int kStates = 64;
 constexpr int kMaxThreads = 128;
-
-__host__ __device__ constexpr int parity7(int x) {
-  return (x ^ (x >> 1) ^ (x >> 2) ^ (x >> 3) ^ (x >> 4) ^ (x >> 5) ^
-          (x >> 6)) & 1;
-}
-
-// Polarity pattern of butterfly b: bit 2 <- g0 (== g3), bit 1 <- g1,
-// bit 0 <- g2. Eight patterns, so eight distinct branch metrics per step.
-__host__ __device__ constexpr int pattern(int b) {
-  return (parity7((b << 1) & 109) << 2) | (parity7((b << 1) & 79) << 1) |
-         parity7((b << 1) & 83);
-}
-
-__device__ __forceinline__ int avg(int a, int b) { return (a + b + 1) >> 1; }
 
 __device__ __forceinline__ void seed(int (&M)[kStates],
                                      uint32_t (&R)[kStates],
@@ -78,30 +65,9 @@ __device__ __forceinline__ void step(int (&M)[kStates],
                                      uint32_t (&R)[kStates], int t,
                                      const int32_t* __restrict__ frame,
                                      int64_t st, int pad) {
-  int s0 = 0, s1 = 0, s2 = 0, s3 = 0;
-  if (t >= pad) {
-    const int32_t* p = frame + static_cast<int64_t>(t - pad) * st;
-    if (kUnpacked) {
-      s0 = __ldg(p) & 255;
-      s1 = __ldg(p + 1) & 255;
-      s2 = __ldg(p + 2) & 255;
-      s3 = __ldg(p + 3) & 255;
-    } else {
-      const uint32_t w = static_cast<uint32_t>(__ldg(p));
-      s0 = w & 255;
-      s1 = (w >> 8) & 255;
-      s2 = (w >> 16) & 255;
-      s3 = w >> 24;
-    }
-  }
   int m8[8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int x0 = (p & 4) ? 255 : 0;
-    const int x1 = (p & 2) ? 255 : 0;
-    const int x2 = (p & 1) ? 255 : 0;
-    m8[p] = avg(avg(s0 ^ x0, s1 ^ x1), avg(s2 ^ x2, s3 ^ x0)) >> 2;
-  }
+  branch_metrics<kUnpacked>(
+      t >= pad ? frame + static_cast<int64_t>(t - pad) * st : nullptr, m8);
   int N[kStates];
   uint32_t NR[kStates];
 #pragma unroll
@@ -121,11 +87,7 @@ __device__ __forceinline__ void step(int (&M)[kStates],
     M[s] = N[s];
     R[s] = NR[s];
   }
-  if (t & 1) {
-    const int sub = M[0] > 150 ? 63 : 0;
-#pragma unroll
-    for (int s = 0; s < kStates; ++s) M[s] = max(M[s] - sub, 0);
-  }
+  if (t & 1) renormalize(M);
 }
 
 template <bool kUnpacked>

@@ -46,16 +46,51 @@ def _avg_u8(a, b):
 def branch_metrics(syms4: np.ndarray) -> np.ndarray:
     """Per-butterfly branch metrics for one trellis step.
 
-    ``syms4``: 4 soft symbols (only the low byte is used). Returns
-    int32[32]: metric for the input-bit-0 branch from low predecessor
-    ``b``; the other three branches of butterfly ``b`` use this metric
-    or its complement 63 - metric.
+    ``syms4``: [..., 4] soft symbols (only the low byte is used), one
+    step of one frame or of many. Returns int32[..., 32]: metric for the
+    input-bit-0 branch from low predecessor ``b``; the other three
+    branches of butterfly ``b`` use this metric or its complement
+    63 - metric.
     """
-    pol = C.branch_polarity_table().astype(np.int32)       # [4, 32]
+    pol = C.branch_polarity_table() == 1                    # [4, 32]
     s = (np.asarray(syms4, dtype=np.int64) & 0xFF).astype(np.int32)
-    a = np.where(pol == 1, 255 - s[:, None], s[:, None])    # [4, 32]
-    m = _avg_u8(_avg_u8(a[0], a[1]), _avg_u8(a[2], a[3]))
+    a = np.where(pol, 255 - s[..., None], s[..., None])     # [..., 4, 32]
+    m = _avg_u8(_avg_u8(a[..., 0, :], a[..., 1, :]),
+                _avg_u8(a[..., 2, :], a[..., 3, :]))
     return (m >> 2) & 63
+
+
+def viterbi_forward_many(framebits: int, symbols: np.ndarray):
+    """Forward ACS pass over N frames at once, each exactly as
+    ``viterbi_forward``. ``symbols``: [N, >= 4*(framebits+6)]. Returns
+    (decisions uint8[T, N, 64], final_metrics int32[N, 64])."""
+    nsteps = framebits + C.TAIL_BITS
+    symbols = np.asarray(symbols)
+    assert symbols.ndim == 2 and symbols.shape[1] >= C.RATE * nsteps
+    n = symbols.shape[0]
+    syms = (symbols[:, : C.RATE * nsteps].astype(np.int64) & 0xFF) \
+        .astype(np.int32).reshape(n, nsteps, C.RATE)
+    metrics = np.full((n, C.NUM_STATES), 63, dtype=np.int32)
+    metrics[:, 0] = 0
+    decisions = np.zeros((nsteps, n, C.NUM_STATES), dtype=np.uint8)
+    sat = lambda x: np.minimum(x, C.METRIC_MAX)
+    for t in range(nsteps):
+        m = branch_metrics(syms[:, t])                         # [N, 32]
+        cm = 63 - m
+        lo, hi = metrics[:, :32], metrics[:, 32:]
+        p0e, p1e = sat(lo + m), sat(hi + cm)     # into even state 2b
+        p0o, p1o = sat(lo + cm), sat(hi + m)     # into odd state 2b+1
+        new = np.empty_like(metrics)
+        new[:, 0::2] = np.minimum(p0e, p1e)
+        new[:, 1::2] = np.minimum(p0o, p1o)
+        decisions[t, :, 0::2] = p1e <= p0e
+        decisions[t, :, 1::2] = p1o <= p0o
+        metrics = new
+        if t % 2 == 1:
+            high = metrics[:, :1] > C.RENORMALIZE_THRESHOLD
+            metrics = np.where(high, np.maximum(metrics - C.RENORM_SUB, 0),
+                               metrics)
+    return decisions, metrics
 
 
 def viterbi_forward(framebits: int, symbols: np.ndarray):
@@ -66,28 +101,23 @@ def viterbi_forward(framebits: int, symbols: np.ndarray):
     high predecessor (deconvolve.cpp:247-250). Renormalization fires
     after every second step (deconvolve.cpp:398-405).
     """
-    nsteps = framebits + C.TAIL_BITS
-    symbols = np.asarray(symbols).reshape(-1)
-    assert len(symbols) >= C.RATE * nsteps
-    metrics = np.full(C.NUM_STATES, 63, dtype=np.int32)
-    metrics[0] = 0
-    decisions = np.zeros((nsteps, C.NUM_STATES), dtype=np.uint8)
-    for t in range(nsteps):
-        m = branch_metrics(symbols[C.RATE * t: C.RATE * (t + 1)])
-        cm = 63 - m
-        lo, hi = metrics[:32], metrics[32:]
-        sat = lambda x: np.minimum(x, C.METRIC_MAX)
-        p0e, p1e = sat(lo + m), sat(hi + cm)     # into even state 2b
-        p0o, p1o = sat(lo + cm), sat(hi + m)     # into odd state 2b+1
-        new = np.empty_like(metrics)
-        new[0::2] = np.minimum(p0e, p1e)
-        new[1::2] = np.minimum(p0o, p1o)
-        decisions[t, 0::2] = (p1e <= p0e)
-        decisions[t, 1::2] = (p1o <= p0o)
-        metrics = new
-        if t % 2 == 1 and metrics[0] > C.RENORMALIZE_THRESHOLD:
-            metrics = np.maximum(metrics - C.RENORM_SUB, 0)
-    return decisions, metrics
+    symbols = np.asarray(symbols).reshape(1, -1)
+    decisions, metrics = viterbi_forward_many(framebits, symbols)
+    return decisions[:, 0], metrics[0]
+
+
+def chainback_many(framebits: int, decisions: np.ndarray) -> np.ndarray:
+    """``chainback`` over N frames: decisions uint8[T, N, 64] ->
+    uint8[N, ceil(framebits/8)]."""
+    n = decisions.shape[1]
+    frames = np.arange(n)
+    out_bits = np.zeros((n, framebits), dtype=np.uint8)
+    state = np.zeros(n, dtype=np.int64)
+    for t in range(framebits - 1, -1, -1):
+        k = decisions[t + C.TAIL_BITS, frames, state].astype(np.int64)
+        out_bits[:, t] = k
+        state = (state >> 1) | (k << 5)
+    return np.packbits(out_bits, axis=1)
 
 
 def chainback(framebits: int, decisions: np.ndarray) -> np.ndarray:
@@ -95,16 +125,16 @@ def chainback(framebits: int, decisions: np.ndarray) -> np.ndarray:
     (``ChainBack``, deconvolve.cpp:416-435): the decision bit of the
     current state at step t+6 is data bit t; predecessor =
     (state >> 1) | (bit << 5)."""
-    out_bits = np.zeros(framebits, dtype=np.uint8)
-    state = 0
-    for t in range(framebits - 1, -1, -1):
-        k = int(decisions[t + C.TAIL_BITS, state])
-        out_bits[t] = k
-        state = (state >> 1) | (k << 5)
-    return np.packbits(out_bits)
+    return chainback_many(framebits, np.asarray(decisions)[:, None])[0]
+
+
+def deconvolve_many(framebits: int, symbols: np.ndarray) -> np.ndarray:
+    """Golden decode of N frames at once: [N, >= 4*(framebits+6)] ->
+    uint8[N, ceil(framebits/8)], frame for frame ``deconvolve``."""
+    decisions, _ = viterbi_forward_many(framebits, symbols)
+    return chainback_many(framebits, decisions)
 
 
 def deconvolve(framebits: int, symbols: np.ndarray) -> np.ndarray:
     """Full golden decode: uint8[ceil(framebits/8)] MSB-first packed bytes."""
-    decisions, _ = viterbi_forward(framebits, symbols)
-    return chainback(framebits, decisions)
+    return deconvolve_many(framebits, np.asarray(symbols).reshape(1, -1))[0]

@@ -3,11 +3,12 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into one shared library with a plain C interface: no PyTorch headers, so
 a build takes seconds. The library lands in a directory keyed by a hash
-of the sources and flags under the build root (``build/kernels`` beside
-the package by default; the config key ``compile_cache`` moves it), so a
-changed source never loads a stale library and an unchanged one is built
-once. Each C entry point launches on the caller's stream and returns
-``cudaGetLastError()``; ``check`` turns a non-zero code into an error.
+of the sources, their shared header (``csrc/*.cuh``) and the flags under
+the build root (``build/kernels`` beside the package by default; the
+config key ``compile_cache`` moves it), so a changed source never loads a
+stale library and an unchanged one is built once. Each C entry point
+launches on the caller's stream and returns ``cudaGetLastError()``;
+``check`` turns a non-zero code into an error.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def sources() -> list[Path]:
 
 def source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):    # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -84,6 +85,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.acs_regs_launch.restype = I
     lib.tb_walk_launch.argtypes = [P, P, P, I, I, I, I, P, I, I, P]
     lib.tb_walk_launch.restype = I
+    lib.acs_words_launch.argtypes = [P, L, L, I, P, I, I, P, P, I, I, P]
+    lib.acs_words_launch.restype = I
+    lib.tb_words_launch.argtypes = [P, I, I, P, I, I, P]
+    lib.tb_words_launch.restype = I
     lib.vt_error_string.argtypes = [I]
     lib.vt_error_string.restype = ctypes.c_char_p
 

@@ -1,5 +1,10 @@
-"""Fused register-exchange forward pass and decode: the port of
-``viterbi_tpu.ops.acs_pallas``'s fused path.
+"""The CUDA forward passes: the port of ``viterbi_tpu.ops.acs_pallas``.
+
+``forward`` is the decisions kernel's wrapper: the trellis with every
+step's decisions written out as the reference's two decision words. On a
+CUDA tensor it launches kernel C (``csrc/acs_words.cu``); on a CPU tensor
+it runs ``forward_plain``, which is ``ops.acs.forward`` after unpacking
+the packed layouts.
 
 ``forward_regs`` runs the trellis while every state carries a 32-bit
 register of its survivor path's last input bits, and writes the
@@ -35,6 +40,7 @@ from . import traceback as tb
 
 DECODE_CKPT = 24   # checkpoint period of decode(); see the module docstring
 ACS_THREADS = 64   # frames per block of kernel A
+WORDS_THREADS = 64  # frames per block of kernel C
 
 
 def pack_symbols(symbols: torch.Tensor, nsteps: int) -> torch.Tensor:
@@ -76,10 +82,15 @@ def choose_ckpt(nsteps: int) -> int:
     return 24
 
 
-def _layout(nsteps: int, ckpt: int | None, front_pad: int):
-    """(total steps, ckpt, checkpoint count, reset step or -1)."""
+def _check_nsteps(nsteps: int) -> None:
+    """The trellis runs in step pairs (the renormalization cadence)."""
     if nsteps <= 0 or nsteps % 2:
         raise ValueError(f"nsteps must be positive and even, got {nsteps}")
+
+
+def _layout(nsteps: int, ckpt: int | None, front_pad: int):
+    """(total steps, ckpt, checkpoint count, reset step or -1)."""
+    _check_nsteps(nsteps)
     if front_pad < 0 or front_pad % 2:
         raise ValueError(f"front_pad must be even and >= 0, got {front_pad}")
     total = nsteps + front_pad
@@ -104,6 +115,31 @@ def _batch(symbols: torch.Tensor, nsteps: int, packed) -> int:
     if steps < nsteps:
         raise ValueError(f"symbols cover {steps} steps, need {nsteps}")
     return B
+
+
+def _strided(symbols: torch.Tensor, packed):
+    """(int32 symbols, frame stride, step stride, unpacked flag): where a
+    kernel finds frame b's step-u symbols in the given layout."""
+    sym = symbols.to(torch.int32)
+    if packed == "bt":
+        return sym, sym.stride(0), sym.stride(1), 0
+    if packed:
+        return sym, sym.stride(1), sym.stride(0), 0
+    if sym.stride(1) != 1:
+        sym = sym.contiguous()
+    return sym, sym.stride(0), C.RATE, 1
+
+
+def unpack_symbols(symbols: torch.Tensor, nsteps: int,
+                   packed: bool | str) -> torch.Tensor:
+    """Symbols in any ``forward`` layout -> [B, 4*nsteps] int32 soft
+    symbols, symbol j of a step from byte j of its packed word."""
+    if not packed:
+        return symbols[:, : C.RATE * nsteps].to(torch.int32)
+    words = symbols[:, :nsteps] if packed == "bt" else symbols[:nsteps].T
+    shifts = torch.arange(0, 32, 8, dtype=torch.int32, device=symbols.device)
+    s = (words.to(torch.int32)[..., None] >> shifts) & 255
+    return s.reshape(words.shape[0], C.RATE * nsteps)
 
 
 def _init_metrics(initial_metrics, B: int, device) -> torch.Tensor:
@@ -191,15 +227,7 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     total, ckpt, K, reset_at = _layout(nsteps, ckpt, front_pad)
     B = _batch(symbols, nsteps, packed)
     dev = symbols.device
-    sym = symbols.to(torch.int32)
-    if packed == "bt":
-        sb, st, unpacked = sym.stride(0), sym.stride(1), 0
-    elif packed:
-        sb, st, unpacked = sym.stride(1), sym.stride(0), 0
-    else:
-        if sym.stride(1) != 1:
-            sym = sym.contiguous()
-        sb, st, unpacked = sym.stride(0), C.RATE, 1
+    sym, sb, st, unpacked = _strided(symbols, packed)
     init = _init_metrics(initial_metrics, B, dev)
     regs = torch.empty((K, C.NUM_STATES, B), dtype=torch.int32, device=dev)
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
@@ -217,6 +245,59 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
 
 
 forward_regs.launches = 0
+
+
+def forward_plain(symbols: torch.Tensor, nsteps: int,
+                  initial_metrics: torch.Tensor | None = None,
+                  packed: bool | str = False):
+    """Plain version of kernel C: ``ops.acs.forward`` on the unpacked
+    symbols. Same arguments and results as ``forward``."""
+    _check_nsteps(nsteps)
+    B = _batch(symbols, nsteps, packed)
+    init = _init_metrics(initial_metrics, B, symbols.device)
+    return acs_ops.forward(unpack_symbols(symbols, nsteps, packed), nsteps,
+                           init)
+
+
+def forward(symbols: torch.Tensor, nsteps: int,
+            initial_metrics: torch.Tensor | None = None,
+            packed: bool | str = False):
+    """The decisions forward pass, twin of ``acs_pallas.forward``.
+
+    ``symbols`` in any ``forward_regs`` layout: unpacked [B, >=4*nsteps],
+    time-major packed [>=nsteps, B] (``packed=True``) or frame-major
+    packed [B, >=nsteps] (``packed="bt"``). ``nsteps`` is even (the
+    renormalization cadence). Returns (decisions int32[nsteps, B, 2],
+    final_metrics int32[B, 64]): bit s of word s//32 is the decision into
+    state s, as int32 bit patterns.
+
+    Kernel C on a CUDA tensor, ``forward_plain`` on a CPU tensor;
+    ``forward.launches`` counts the kernel's launches.
+    """
+    if symbols.device.type == "cpu":
+        return forward_plain(symbols, nsteps, initial_metrics, packed)
+    if symbols.device.type != "cuda":
+        raise ValueError(f"forward: unsupported device {symbols.device}")
+    _check_nsteps(nsteps)
+    B = _batch(symbols, nsteps, packed)
+    dev = symbols.device
+    sym, sb, st, unpacked = _strided(symbols, packed)
+    init = _init_metrics(initial_metrics, B, dev)
+    dec = torch.empty((nsteps, B, 2), dtype=torch.int32, device=dev)
+    metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
+    if B == 0:
+        return dec, metrics
+    lib = _build.load()
+    err = lib.acs_words_launch(
+        sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, nsteps,
+        dec.data_ptr(), metrics.data_ptr(), WORDS_THREADS, dev.index or 0,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, err, "acs_words")
+    forward.launches += 1
+    return dec, metrics
+
+
+forward.launches = 0
 
 
 def decode(symbols: torch.Tensor, framebits: int,

@@ -1,12 +1,17 @@
-"""Traceback (chainback): the serial decision walk and the checkpoint walk.
+"""Traceback (chainback): the decision-word walks and the checkpoint walk.
 
-The port of the parts of ``viterbi_tpu.ops.traceback`` on the fused
-decode path:
+The port of ``viterbi_tpu.ops.traceback``:
 
   * ``chainback_scan`` — the reference's serial walk (chainback.inc:18-41,
     deconvolve.cpp:416-435) over decision words: from state 0 at the end
     of the terminated trellis, read the current state's decision bit and
     hop to the predecessor ``(state >> 1) | (bit << 5)``.
+  * ``chainback_words_cuda`` — the same walk emitting 24-bit windows:
+    ``tb_words`` runs it as kernel D (``csrc/tb_words.cu``) on a CUDA
+    tensor and as its plain version ``tb_words_plain`` on a CPU tensor.
+  * ``chainback_blocked`` — the block-parallel traceback in plain torch:
+    compose each block's predecessor maps, walk the block boundaries
+    serially, then re-walk every block in parallel.
   * ``chainback_regs`` / ``chainback_regs_cuda`` — the walk over
     survivor-register checkpoints (``ops.acs_cuda.forward_regs``): one
     step per checkpoint instead of one per bit. ``tb_walk`` runs it as
@@ -28,6 +33,8 @@ from .. import constants as C
 from . import _build
 
 TB_THREADS = 128   # frames per block of kernel B
+WORDS_TB_THREADS = 128   # frames per block of kernel D
+WORDS_WINDOW = 24  # decoded bits per window of kernel D
 
 _PACK_WEIGHTS = 1 << np.arange(7, -1, -1, dtype=np.int32)   # MSB first
 
@@ -47,22 +54,145 @@ def packbits_msb(bits: torch.Tensor) -> torch.Tensor:
     return (b * w).sum(-1).to(torch.uint8)
 
 
+def _walk_bits(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
+    """The serial decision walk from state 0: int32[>= framebits+6, B, 2]
+    decision words -> int32[framebits, B] decoded bits."""
+    B = decisions.shape[1]
+    state = torch.zeros(B, dtype=torch.int64, device=decisions.device)
+    bits = torch.empty((framebits, B), dtype=torch.int32,
+                       device=decisions.device)
+    # steps 0..5 are never read: their bits predate the frame
+    for t in range(framebits - 1, -1, -1):
+        word = decisions[t + C.TAIL_BITS].gather(1, (state >> 5)[:, None])
+        # an arithmetic shift of the int32 word, masked to one bit
+        k = (word[:, 0].to(torch.int64) >> (state & 31)) & 1
+        bits[t] = k
+        state = (state >> 1) | (k << 5)
+    return bits
+
+
 def chainback_scan(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
     """Serial-walk traceback. decisions: int32[>= framebits+6, B, 2].
 
     Returns uint8[B, ceil(framebits/8)] MSB-first packed data bits.
     """
+    return packbits_msb(_walk_bits(decisions, framebits).T)
+
+
+def _check_words(decisions: torch.Tensor, framebits: int) -> None:
+    if framebits <= 0 or framebits % WORDS_WINDOW:
+        raise ValueError(f"the word walk needs framebits % 24 == 0, got "
+                         f"{framebits}")
+    if decisions.dtype != torch.int32 or decisions.dim() != 3 \
+            or decisions.shape[2] != 2 \
+            or decisions.shape[0] < framebits + C.TAIL_BITS:
+        raise ValueError(f"decisions must be int32[>= {framebits + 6}, B, "
+                         f"2], got {decisions.dtype}"
+                         f"{list(decisions.shape)}")
+
+
+def tb_words_plain(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
+    """Plain version of kernel D: the serial walk over decision words
+    int32[>= framebits+6, B, 2] from state 0, newest step first. Returns
+    rs int32[framebits/24, B]: data bit t at bit 23 - t%24 of window
+    t//24 (the lowest t at the most significant bit)."""
+    _check_words(decisions, framebits)
+    bits = _walk_bits(decisions, framebits)
+    w = WORDS_WINDOW
+    shifts = torch.arange(w - 1, -1, -1, dtype=torch.int32,
+                          device=decisions.device)
+    return (bits.reshape(framebits // w, w, -1) << shifts[:, None]) \
+        .sum(1, dtype=torch.int32)
+
+
+def tb_words(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
+    """The decision-word walk: kernel D on a CUDA tensor,
+    ``tb_words_plain`` on a CPU tensor. Same arguments and result as
+    ``tb_words_plain``; ``tb_words.launches`` counts the kernel's
+    launches."""
+    if decisions.device.type == "cpu":
+        return tb_words_plain(decisions, framebits)
+    if decisions.device.type != "cuda":
+        raise ValueError(f"tb_words: unsupported device {decisions.device}")
+    _check_words(decisions, framebits)
+    decisions = decisions.contiguous()
     B = decisions.shape[1]
-    state = torch.zeros(B, dtype=torch.int64, device=decisions.device)
-    bits = torch.empty((B, framebits), dtype=torch.int64,
-                       device=decisions.device)
-    # steps 0..5 are never read: their bits predate the frame
-    for t in range(framebits - 1, -1, -1):
-        word = decisions[t + C.TAIL_BITS].gather(1, (state >> 5)[:, None])
-        k = (word[:, 0].to(torch.int64) >> (state & 31)) & 1
-        bits[:, t] = k
+    rs = torch.empty((framebits // WORDS_WINDOW, B), dtype=torch.int32,
+                     device=decisions.device)
+    if B == 0:
+        return rs
+    lib = _build.load()
+    err = lib.tb_words_launch(
+        decisions.data_ptr(), B, framebits, rs.data_ptr(), WORDS_TB_THREADS,
+        decisions.device.index or 0,
+        ctypes.c_void_p(
+            torch.cuda.current_stream(decisions.device).cuda_stream))
+    _build.check(lib, err, "tb_words")
+    tb_words.launches += 1
+    return rs
+
+
+tb_words.launches = 0
+
+
+def chainback_words_cuda(decisions: torch.Tensor,
+                         framebits: int) -> torch.Tensor:
+    """Traceback over decision words through ``tb_words`` (kernel D on
+    the card), then byte assembly: the twin of
+    ``chainback_words_pallas``. Needs framebits % 24 == 0. Returns
+    uint8[B, framebits // 8], bit-exact vs ``chainback_scan``."""
+    rs = tb_words(decisions, framebits)
+    return _regs_bytes(rs, framebits, WORDS_WINDOW, gap=WORDS_WINDOW,
+                       tail=0)
+
+
+def chainback_blocked(decisions: torch.Tensor, framebits: int,
+                      block: int = 64) -> torch.Tensor:
+    """Block-parallel traceback, plain torch; bit-exact vs
+    ``chainback_scan``. decisions: int32[>= framebits+6, B, 2];
+    ``framebits`` must be a multiple of ``block``. Returns
+    uint8[B, framebits // 8].
+
+    Phase 1 composes, for every block in parallel, the predecessor maps
+    of its steps into one map from the state at the block's end to the
+    state at its start. Phase 2 walks those maps serially from end state
+    0 to find every block's end state. Phase 3 re-walks all blocks in
+    parallel from their end states.
+    """
+    if block <= 0 or framebits % block:
+        raise ValueError(f"framebits {framebits} is not a multiple of "
+                         f"block {block}")
+    nblocks = framebits // block
+    B = decisions.shape[1]
+    dev = decisions.device
+    words = decisions[C.TAIL_BITS:C.TAIL_BITS + framebits] \
+        .reshape(nblocks, block, B, 2)
+
+    def bits_at(t, state):
+        """Decision bits of in-block step t for states [nblocks, B, S]."""
+        w = words[:, t].gather(-1, state >> 5)
+        return (w.to(torch.int64) >> (state & 31)) & 1
+
+    # phase 1: comp[n, b, s] = state at block n's start given state s at
+    # its end; step t's map sends s to (s >> 1) | (bit << 5)
+    every = torch.arange(C.NUM_STATES, device=dev).expand(nblocks, B, -1)
+    comp = every
+    for t in range(block):
+        comp = comp.gather(-1, (every >> 1) | (bits_at(t, every) << 5))
+    # phase 2: the state at every block's end, from end state 0
+    ends = torch.empty((nblocks, B), dtype=torch.int64, device=dev)
+    state = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    for n in range(nblocks - 1, -1, -1):
+        ends[n] = state[:, 0]
+        state = comp[n].gather(-1, state)
+    # phase 3: every block's bits from its end state
+    state = ends[..., None]
+    bits = torch.empty((nblocks, block, B), dtype=torch.int64, device=dev)
+    for t in range(block - 1, -1, -1):
+        k = bits_at(t, state)
+        bits[:, t] = k[..., 0]
         state = (state >> 1) | (k << 5)
-    return packbits_msb(bits)
+    return packbits_msb(bits.permute(2, 0, 1).reshape(B, framebits))
 
 
 def tb_walk_plain(regs: torch.Tensor, ckpt: int, gap: int,

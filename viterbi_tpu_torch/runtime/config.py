@@ -33,6 +33,9 @@ a:0
 # Line 1, byte 2: '1' prints the chosen variant at initialize().
 #
 # Optional key=value lines (defaults shown):
+# traceback_block=64  (block of the block-parallel traceback, at least 8;
+#                      the largest of 64, 48, ..., 1 dividing framebits
+#                      where it does not)
 # log_calls=0
 # log_symbols=0
 # compile_cache=1  (the CUDA kernels' build directory, keyed by a hash of
@@ -54,6 +57,7 @@ def default_path() -> str:
 class Config:
     variant_override: int = -1     # -1 = automatic
     show_info: bool = False
+    traceback_block: int = 64
     log_calls: bool = False
     log_symbols: bool = False
     compile_cache: str = field(default_factory=_build.default_build_root)
@@ -90,7 +94,12 @@ def load(path: str | None = None) -> Config:
             continue
         key, _, val = line.partition("=")
         key, val = key.strip(), val.strip()
-        if key == "log_calls":
+        if key == "traceback_block":
+            try:
+                cfg.traceback_block = max(8, int(val))
+            except ValueError:
+                pass
+        elif key == "log_calls":
             cfg.log_calls = val not in ("0", "false", "")
         elif key == "log_symbols":
             cfg.log_symbols = val not in ("0", "false", "")
