@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main decode path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's decode paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each raises on failure, so the exit code is non-zero):
   1. device: require a CUDA device; print the card's name and power limit;
-  2. build: compile the kernels from viterbi_tpu_torch/csrc with nvcc;
+  2. build: compile the decode kernels and the probes' kernels from
+     viterbi_tpu_torch/csrc with nvcc, both libraries at the same time;
+     kernel A must keep its registers and spill nothing;
   3. kernels: kernel A (fused register-exchange ACS) and kernel B
      (checkpoint walk), kernel C (decisions) and kernel D (decision-word
      walk) against their plain torch versions on the card, bit for bit,
@@ -29,19 +31,47 @@ Phases (each raises on failure, so the exit code is non-zero):
   7. times: both paths end to end; each kernel against its plain
      version on the main-path batch, timed and held bit for bit; and
      the main path's output against a decode through plain versions
-     only (forward_plain, then tb_words_plain).
+     only (forward_plain, then tb_words_plain);
+  8. superframe path: 2048 DAB+ audio superframes at 128 kbit/s (10240
+     frames, 32768 RS codewords) through
+     models.dab.decode_audio_superframes on the card: kernels A and B
+     must be launched, the audio equal to what was encoded wherever the
+     error count is not -1, audio and counts equal to the golden model
+     and to the CPU's plain path on subsets, and on the whole batch to
+     the same call through plain versions only on the card; kernels A
+     and B against their plain versions on the path's own symbols; rates
+     and the split Viterbi / assembly / RS;
+  9. RS: rs_check_superframe through the API for rs_dims 1, 4, 16, 48,
+     clean, corrected and -1 with the partial prefix write, against
+     golden; then probes.rsform: the table and the bitwise form of the
+     field arithmetic at 65536 codewords on three error mixes, equal to
+     each other and timed;
+ 10. EEP path: decode_punctured_frames at 128 kbit/s for EEP 3-A and
+     2-B, and decode_profile_frames with a four-segment row, against
+     golden on a subset and, on the whole batch, against the plain path
+     on the card; kernels A and B against their plain versions on the
+     depunctured symbols;
+ 11. replay: the committed corpus replays bit-exactly;
+ 12. probes: kernels E to H against their plain versions, bit for bit,
+     at the probes' own shapes, then each probe's table.
 The last line of output is {"ok": true, "device": {...}}; the line
-before it lists the kernels as JSON.
+before it lists the eight kernels as JSON, each with its launches on its
+path, its time beside its plain version's, and its bound: the larger of
+the bytes it must move over 3.35 TB/s and its integer operations (the
+shortest sequence that computes the step; an add feeding a min counts as
+one, as the card fuses them) over the card's issue rate.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -58,6 +88,43 @@ SWEEP_ERRORS = {"2.0": 1321, "3.0": 55, "4.0": 11}
 # (64 -> nsteps 70), 96 and an odd bitrate (97 kbit/s -> 2328)
 WORDS_FRAMEBITS = (192, 768, 1536, 2304, 3072, 4608, 9216, 64, 96, 2328)
 WALK_FRAMEBITS = (24, 48, 768, 2328, 9216)   # kernel D's check sizes
+SF_KBPS = 128           # the superframe path's subchannel (rs_dims 16)
+B_SF = 2048             # superframes per call: 10240 frames, 32768 codewords
+SF_BAD = 8              # superframes with nine byte errors in one codeword
+SF_GOLDEN = 12          # superframes held against the golden model
+SF_PLAIN = 4            # superframes held against the CPU's plain path
+E_BATCH = 8192          # the ablation probe's batch (framebits FB_MAIN)
+
+# The card's peaks for the bounds: memory rate (data sheet), and issue
+# rates per SM and clock: 64 int32 lanes, 128 float32 lanes (an add or a
+# min is one operation; the 67 TFLOP/s of the data sheet count an FMA
+# as two).
+HBM_BYTES_S = 3.35e12
+SMS = 132
+INT_LANES, FP32_LANES = 64, 128
+# Integer operations per trellis step and frame for the bounds, counted
+# from csrc/trellis.cuh and the kernels as the shortest instruction
+# sequence the card has: an add that feeds a min or max is one operation
+# (Hopper's fused add-min, which the probes show at full issue rate), a
+# three-input add is one, a shift-and-or by constants is one. Branch
+# metrics: the eight patterns share their parts, so 4 complements of a
+# symbol (xor 255), then avg(s0^x0, s1^x1) and avg(s2^x2, s3^x0) with 4
+# distinct values each = 8 pair averages of 2 (a+b+1, shift), then 8
+# final averages whose shift takes the >> 2 along (a+b+1, >> 3) = 16:
+# 36 in all, + 4 to unpack the word, + 8 complements (63 - m).
+# Renormalization: (1 compare + 64 fused sub-max) every other step =
+# 32.5. Kernel A's butterfly: 4 saturating adds, 2 compares, 2 selects,
+# then 2 selects and 2 shift-ors on the registers = 12. Kernel C's: the
+# same 8 on the metrics, 2 to turn the decisions into bits, 2 to place
+# them = 12.
+BRANCH_METRIC_OPS = 4 + 8 * 2 + 8 * 2
+STEP_COMMON_OPS = BRANCH_METRIC_OPS + 4 + 8 + 32.5
+OPS_PER_STEP_A = 32 * 12 + STEP_COMMON_OPS
+OPS_PER_STEP_C = 32 * 12 + STEP_COMMON_OPS
+OPS_PER_ROUND_G = 3     # two fused add-mins and a xor
+OPS_PER_ROUND_H = 2     # int: two fused add-mins a stream (float: 4 ops)
+OPS_PER_CKPT_B = 6      # address (3), shift, mask, anchor compare
+OPS_PER_BIT_D = 9       # word select, 2 shifts + 2 masks, 2 to place, 2 state
 
 
 def card_line() -> str:
@@ -66,6 +133,48 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(nbytes: float, int_ops: float, clock_hz: float,
+          fp_ops: float = 0.0) -> dict:
+    """The least time the card could take, as a kernel row's bound keys:
+    ``bound_ms`` is the larger of the bytes over the memory rate
+    (``bound_bytes_ms``) and the operations over the issue rate of their
+    type, integer and float pipes side by side (``bound_ops_ms``);
+    ``bound_by`` says which."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_S
+    by_ops = 1e3 * max(int_ops / (INT_LANES * SMS * clock_hz),
+                       fp_ops / (FP32_LANES * SMS * clock_hz))
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops}
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel name: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v output, one entry per instantiation."""
+    found, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name] = (int(m.group(1)), *spills)
+    return found
 
 
 def max_abs_err(got, want) -> int:
@@ -224,6 +333,426 @@ def harness_phase(root: Path) -> dict:
     return written
 
 
+def hold_path_kernels(flat, framebits, check, what) -> None:
+    """Kernels A and B against their plain versions on the very symbols
+    a chain hands acs_cuda.decode: unpacked int32 [N, 4*(framebits+6)],
+    decode()'s checkpoint period, no front pad."""
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    n, ck = framebits + C.TAIL_BITS, acs_cuda.DECODE_CKPT
+    what = f"{what}: {flat.shape[0]} x {framebits} unpacked, ckpt {ck}"
+    r_k, m_k = acs_cuda.forward_regs(flat, n, ckpt=ck)
+    r_p, m_p = acs_cuda.forward_regs_plain(flat, n, ckpt=ck)
+    check("acs_regs", r_k, r_p, what + " regs")
+    check("acs_regs", m_k, m_p, what + " metrics")
+    gap = n - (r_k.shape[0] - 1) * ck
+    check("tb_walk", tb.tb_walk(r_k, ck, gap), tb.tb_walk_plain(r_k, ck, gap),
+          what + " windows")
+
+
+def superframe_path(dev, tag, check) -> dict:
+    """Phase 8: the DAB+ audio-superframe chain at full width on the
+    card; returns kernel A's and B's launch counts on the path."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch import golden
+    from viterbi_tpu_torch.harness import channel
+    from viterbi_tpu_torch.models import dab
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import rs as rs_ops
+    from viterbi_tpu_torch.ops import traceback as tb
+    from viterbi_tpu_torch.probes import _common
+    cfg = dab.SubchannelConfig(SF_KBPS)
+    t0 = time.perf_counter()
+    audio, syms = channel.make_superframes(B_SF, SF_KBPS, seed=11,
+                                           ebn0_db=EBN0_DB,
+                                           uncorrectable=SF_BAD)
+    print(f"superframes: {B_SF} x 5 frames of {cfg.framebits} bits, "
+          f"{B_SF * cfg.rs_dims} codewords, {syms.nbytes / 1e6:.0f} MB of "
+          f"symbols, made in {time.perf_counter() - t0:.1f} s on the host")
+    acs_cuda.forward_regs.launches = 0
+    tb.tb_walk.launches = 0
+    got_audio, got_errors = dab.decode_audio_superframes(syms, SF_KBPS)
+    torch.cuda.synchronize()
+    launches = {"acs_regs": acs_cuda.forward_regs.launches,
+                "tb_walk": tb.tb_walk.launches}
+    print(f"superframe path launches: {launches}")
+    for name, count in launches.items():
+        assert count > 0, f"the superframe path never launched {name}"
+    assert got_audio.is_cuda and got_errors.is_cuda
+    assert got_audio.shape == (B_SF, cfg.rs_dims * C.RS_KK)
+    assert got_audio.dtype == torch.uint8 and got_errors.shape == (B_SF,)
+    out_a, out_e = got_audio.cpu().numpy(), got_errors.cpu().numpy()
+    # wherever RS reports success the audio is what was encoded
+    sent = audio.transpose(0, 2, 1).reshape(B_SF, -1)
+    ok = out_e >= 0
+    assert np.array_equal(out_a[ok], sent[ok]), \
+        "audio differs from what was encoded where errors >= 0"
+    assert (out_e[:SF_BAD] == -1).any(), "no uncorrectable superframe"
+    assert ok.sum() >= B_SF - 4 * SF_BAD, f"only {ok.sum()} decoded"
+    # the golden model on a subset, the planted failures included
+    frames = golden.deconvolve_many(
+        cfg.framebits, syms[:SF_GOLDEN].reshape(-1, syms.shape[2]))
+    for i, sf in enumerate(frames.reshape(SF_GOLDEN, -1)):
+        g_err, g_out = golden.rs_check_superframe(sf, cfg.rs_dims)
+        assert out_e[i] == g_err, f"superframe {i}: {out_e[i]} != {g_err}"
+        if g_err >= 0:
+            assert np.array_equal(out_a[i], g_out), f"superframe {i} audio"
+    # the same call on the CPU: plain versions only
+    cpu_a, cpu_e = dab.decode_audio_superframes(
+        syms[SF_BAD - 2:SF_BAD + SF_PLAIN - 2], SF_KBPS, device="cpu")
+    sl = slice(SF_BAD - 2, SF_BAD + SF_PLAIN - 2)
+    assert np.array_equal(cpu_e.numpy(), out_e[sl]) and \
+        np.array_equal(cpu_a.numpy(), out_a[sl]), "card != CPU plain path"
+    print(f"superframe path: {int(ok.sum())} of {B_SF} superframes decoded "
+          f"({int((out_e == -1).sum())} uncorrectable, "
+          f"{int(out_e[ok].sum())} byte errors corrected by RS); audio equal "
+          f"to what was encoded wherever errors >= 0; {SF_GOLDEN} "
+          f"superframes equal to golden, {SF_PLAIN} to the CPU's plain path")
+
+    # rates: host array in, host arrays out; then symbols resident
+    e2e = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        a, e = dab.decode_audio_superframes(syms, SF_KBPS)
+        a.cpu(), e.cpu()
+        e2e.append(time.perf_counter() - t0)
+    e2e_s = statistics.median(e2e)
+    dsyms = torch.from_numpy(syms).to(dev)
+    # the whole batch: each kernel against its plain version on the
+    # path's own symbols, and the path's output against the same call
+    # through plain versions only (acs.forward, the blocked traceback)
+    t0 = time.perf_counter()
+    hold_path_kernels(dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1),
+                      cfg.framebits, check, "superframe path")
+    plain_a, plain_e = dab.decode_audio_superframes(dsyms, SF_KBPS,
+                                                    use_kernels=False)
+    assert torch.equal(plain_a, got_audio) and \
+        torch.equal(plain_e, got_errors), \
+        "superframe path != the same call through plain versions only"
+    del plain_a, plain_e
+    torch.cuda.synchronize()
+    print(f"superframe path: kernels A and B bit-identical to their plain "
+          f"versions on its {B_SF * dab.SUPERFRAME_FRAMES} frames; audio and "
+          f"counts of all {B_SF} superframes equal to the plain-only call on "
+          f"the card ({time.perf_counter() - t0:.1f} s)")
+    res_ms = cuda_ms(lambda: dab.decode_audio_superframes(dsyms, SF_KBPS),
+                     5)[0]
+    flat = dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1)
+    vit_ms, frame_bytes = cuda_ms(
+        lambda: dab.decode_frames(flat, cfg.framebits, True), 5)
+    asm_ms, blocks = cuda_ms(lambda: dab.bytes_to_superframes(
+        frame_bytes.reshape(B_SF, dab.SUPERFRAME_FRAMES, cfg.frame_bytes),
+        cfg).reshape(B_SF, C.RS_N, cfg.rs_dims).transpose(1, 2)
+        .reshape(B_SF * cfg.rs_dims, C.RS_N).contiguous(), 5)
+    rs_ms, _ = cuda_ms(lambda: rs_ops.rs_decode_blocks(blocks), 5)
+    rs_launches = _common.count_launches(
+        lambda: rs_ops.rs_decode_blocks(blocks))
+    print(f"{tag} superframe path B={B_SF} at {SF_KBPS} kbit/s: "
+          f"{B_SF / e2e_s:.1f} superframes/s end to end (median "
+          f"{e2e_s * 1e3:.2f} ms of 3), {B_SF / res_ms * 1e3:.1f} "
+          f"superframes/s with the symbols resident ({res_ms:.2f} ms); "
+          f"split Viterbi {vit_ms:.2f} ms, assembly {asm_ms:.2f} ms, RS "
+          f"{rs_ms:.2f} ms in {rs_launches} launches")
+    return launches
+
+
+def rs_export(tag) -> None:
+    """Phase 9a: rs_check_superframe through the API against golden."""
+    import viterbi_tpu_torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch import golden
+    rung("cuda_fused")
+    rng = np.random.default_rng(9)
+    for rs_dims in (1, 4, 16, 48):
+        cases = {"clean": [0] * rs_dims,
+                 "corrected": [(3 * j) % 6 for j in range(rs_dims)],
+                 "uncorrectable": [(j + 1) % 4 if j != rs_dims // 2 else 9
+                                   for j in range(rs_dims)]}
+        times = {}
+        for case, errs in cases.items():
+            cws = golden.rs_encode_many(rng.integers(
+                0, 256, (rs_dims, C.RS_KK), dtype=np.uint8))
+            for j, e in enumerate(errs):
+                pos = rng.choice(C.RS_N, e, replace=False)
+                cws[j, pos] ^= rng.integers(1, 256, e).astype(np.uint8)
+            sf = cws.T.reshape(-1)
+            g_err, g_out = golden.rs_check_superframe(sf, rs_dims)
+            buf = bytearray([0xEE] * (rs_dims * C.RS_KK))
+            runs = []
+            for _ in range(5):
+                buf[:] = bytes([0xEE]) * len(buf)
+                t0 = time.perf_counter()
+                ret = viterbi_tpu_torch.rs_check_superframe(sf, 0, rs_dims,
+                                                            buf)
+                runs.append(time.perf_counter() - t0)
+            times[case] = statistics.median(runs) * 1e3
+            assert ret == g_err, f"rs_dims {rs_dims} {case}: {ret} != {g_err}"
+            assert (ret == -1) == (case == "uncorrectable")
+            want = g_out.copy()
+            if ret == -1:
+                # golden's out holds the corrected prefix; every other
+                # byte of the caller's buffer stays as it was
+                n_ok = rs_dims // 2
+                want = want.reshape(C.RS_KK, rs_dims)
+                want[:, n_ok:] = 0xEE
+                want = want.reshape(-1)
+            assert np.array_equal(np.frombuffer(bytes(buf), np.uint8),
+                                  want), f"rs_dims {rs_dims} {case}: bytes"
+        print(f"{tag} rs_check_superframe rs_dims={rs_dims}: clean, "
+              f"corrected and -1 (prefix of {rs_dims // 2}) equal to golden; "
+              + ", ".join(f"{c} {ms:.2f} ms" for c, ms in times.items())
+              + " per call")
+
+
+def rs_forms(tag) -> None:
+    """Phase 9b: the table form and the bitwise form of the field
+    arithmetic on three error mixes (probes.rsform, which raises unless
+    they are equal, count as planted and agree with golden)."""
+    from viterbi_tpu_torch.probes import rsform
+    rows = rsform.main([])
+    assert len(rows) == 2 * len(rsform.MIXES)
+    for r in rows:
+        assert r["ms"] > 0 and r["launches"], r
+    print(f"{tag} RS forms: " + "; ".join(
+        f"{r['mix']} {r['form']} {r['ms']:.2f} ms in {r['launches']} launches"
+        for r in rows))
+
+
+def eep_path(dev, tag, check) -> dict:
+    """Phase 10: the punctured-frame decoders on the card."""
+    import torch
+    from viterbi_tpu_torch import golden
+    from viterbi_tpu_torch.harness import channel
+    from viterbi_tpu_torch.models import dab
+    from viterbi_tpu_torch.models import puncture as P
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    fb = 24 * SF_KBPS
+    launches = {"acs_regs": 0, "tb_walk": 0}
+    row = ((24, 24), (40, 16), (20, 9), (12, 5))     # 96 blocks = 128 kbit/s
+    profiles = {"EEP 3-A": P.eep_profile(SF_KBPS, 3, "A"),
+                "EEP 2-B": P.eep_profile(SF_KBPS, 2, "B"),
+                "user row": P.uep_profile_from_row(SF_KBPS, 3, row)}
+    for name, prof in profiles.items():
+        bits, syms = channel.make_frames(B_CHECK, fb, seed=len(name),
+                                         ebn0_db=6.0)
+        mask = prof.mask()
+        rec = P.puncture(syms, mask).astype(np.int32)
+
+        def decode(received, **kw):
+            if name == "EEP 3-A":
+                return dab.decode_punctured_frames(received, SF_KBPS, 3, "A",
+                                                   **kw)
+            if name == "EEP 2-B":
+                return dab.decode_punctured_frames(received, SF_KBPS, 2, "B",
+                                                   **kw)
+            return dab.decode_profile_frames(received, prof, **kw)
+
+        acs_cuda.forward_regs.launches = 0
+        tb.tb_walk.launches = 0
+        t0 = time.perf_counter()
+        got = decode(rec)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches["acs_regs"] += acs_cuda.forward_regs.launches
+        launches["tb_walk"] += tb.tb_walk.launches
+        assert got.is_cuda and got.shape == (B_CHECK, fb // 8)
+        out = got.cpu().numpy()
+        want = golden.deconvolve_many(fb, P.depuncture(rec[:4], mask))
+        assert np.array_equal(out[:4], want), f"{name} != golden"
+        # the whole batch through plain versions only (acs.forward, the
+        # serial traceback) on the card, and each kernel against its plain
+        # version on the depunctured symbols
+        drec = torch.from_numpy(rec).to(dev)
+        assert torch.equal(decode(drec, use_kernels=False), got), \
+            f"{name} != the same call through plain versions only"
+        hold_path_kernels(dab.depuncture_device(drec, mask), fb, check, name)
+        print(f"{tag} {name} at {SF_KBPS} kbit/s: B={B_CHECK}, "
+              f"{prof.transmitted_bits} of {mask.size} symbols sent, "
+              f"{channel.ber_fer(out, bits)[2]} bit errors at 6 dB, equal "
+              f"to golden on 4 frames and to the plain-only call on all; "
+              f"kernels A and B bit-identical to plain on its symbols "
+              f"({ms:.1f} ms end to end)")
+    for name, count in launches.items():
+        assert count == len(profiles), f"EEP path: {name} x {count}"
+    return launches
+
+
+def replay_phase(root: Path) -> None:
+    """Phase 11: the committed capture corpus through the port's API."""
+    from viterbi_tpu_torch.harness import replay
+    rung("cuda_fused")
+    n_ok, n_total, report = replay.replay_corpus(
+        str(root / "tests" / "data" / "corpus"))
+    bad = [r for r in report if not r[2]]
+    assert n_total == 13 and n_ok == n_total and not bad, bad
+    kinds = sorted({r[1] for r in report})
+    print(f"replay: {n_ok} of {n_total} corpus captures ok ({kinds})")
+
+
+def probes_phase(dev, tag, check, clock_hz) -> dict:
+    """Phase 12: kernels E to H against their plain versions at the
+    probes' own shapes, then each probe's table. Returns the kernels'
+    rows for the JSON line (without name and route)."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.probes import kablate, kdtype, kilp
+    rng = np.random.default_rng(12)
+    rows = {}
+    ck = acs_cuda.DECODE_CKPT
+
+    def words(batch, n):
+        return torch.from_numpy(rng.integers(
+            -2**31, 2**31, (batch, n), dtype=np.int64).astype(np.int32)) \
+            .to(dev)
+
+    # --- E: every variant at B_CHECK over a few sizes, then at the probe's
+    # shape; full against kernel A
+    t0 = time.perf_counter()
+    for fb in (3072, 768, 64, 32):
+        n = fb + C.TAIL_BITS
+        w = words(B_CHECK, n)
+        for name, abl in kablate.VARIANTS:
+            r_k, m_k = kablate.forward_regs_ablated(w, n, abl, ck)
+            r_p, m_p = kablate.forward_regs_ablated_plain(w, n, abl, ck)
+            check("kablate", r_k, r_p, f"{name} framebits {fb} regs")
+            check("kablate", m_k, m_p, f"{name} framebits {fb} metrics")
+    n = FB_MAIN + C.TAIL_BITS
+    w = words(E_BATCH, n)
+    for name, abl in kablate.VARIANTS:
+        k_ms, (r_k, m_k) = cuda_ms(
+            lambda: kablate.forward_regs_ablated(w, n, abl, ck), 5)
+        p_ms, (r_p, m_p) = cuda_ms(
+            lambda: kablate.forward_regs_ablated_plain(w, n, abl, ck), 1)
+        check("kablate", r_k, r_p, f"{name} B={E_BATCH} regs")
+        check("kablate", m_k, m_p, f"{name} B={E_BATCH} metrics")
+        if not abl:
+            r_a, m_a = acs_cuda.forward_regs(w, n, ckpt=ck, packed="bt")
+            check("kablate", r_k, r_a, "full against kernel A, regs")
+            check("kablate", m_k, m_a, "full against kernel A, metrics")
+            K = r_k.shape[0]
+            rows["kablate"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=None,
+                **bound(E_BATCH * (n * 4 + 256 + K * 256 + 256),
+                        E_BATCH * n * OPS_PER_STEP_A, clock_hz))
+    del w, r_k, m_k, r_p, m_p, r_a, m_a
+    print(f"kernel E vs plain: {len(kablate.VARIANTS)} variants x "
+          f"(4 sizes at B={B_CHECK}, B={E_BATCH} x {FB_MAIN}) bit-identical, "
+          f"full equal to kernel A ({time.perf_counter() - t0:.1f} s)")
+
+    # --- F: every (type, op) on the probe's shape
+    t0 = time.perf_counter()
+    for dtype, op in [(d, o) for d in kdtype.OP_DTYPES for o in kdtype.OPS] \
+            + list(kdtype.PACKED_OPS):
+        lane = kdtype._lane_dtype(dtype)
+        bits = kdtype._BITS[lane]
+        lo = -(1 << (bits - 1)) if lane.startswith("i") else 0
+        x, y = (torch.from_numpy(rng.integers(
+            lo, lo + (1 << bits), kdtype.OP_SHAPE).astype(np.int32)).to(dev)
+            for _ in range(2))
+        check("kdtype_op", kdtype.elementwise(op, dtype, x, y),
+              kdtype.elementwise_plain(op, dtype, x, y), f"{dtype} {op}")
+    # the row: u8 add, beside the one PyTorch call that computes it
+    x, y = (torch.from_numpy(rng.integers(0, 256, kdtype.OP_SHAPE)
+                             .astype(np.int32)).to(dev) for _ in range(2))
+    a8, b8 = x.to(torch.uint8), y.to(torch.uint8)
+    out8 = torch.empty_like(a8)
+    codes = kdtype._op_codes("add", "u8")
+    nlanes = x.numel()
+    # ms: the launch alone on operands stored as u8, as the library call
+    # has them; wrapper_ms: with the wrapper's conversions from and to
+    # int32 lane values
+    rows["kdtype_op"] = dict(
+        ms=cuda_ms(lambda: kdtype._launch_op(codes, a8, b8, out8), 50)[0],
+        wrapper_ms=cuda_ms(
+            lambda: kdtype.elementwise("add", "u8", x, y), 50)[0],
+        plain_ms=cuda_ms(
+            lambda: kdtype.elementwise_plain("add", "u8", x, y), 50)[0],
+        library_ms=cuda_ms(lambda: torch.add(a8, b8), 50)[0],
+        **bound(3 * nlanes, nlanes, clock_hz))
+    check("kdtype_op", out8, torch.add(a8, b8), "u8 add on stored operands")
+    print(f"kernel F vs plain: {len(kdtype.OP_DTYPES) * len(kdtype.OPS)} "
+          f"narrow and {len(kdtype.PACKED_OPS)} packed ops on "
+          f"{kdtype.OP_SHAPE} bit-identical "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # --- G: every type at the probe's shape and rounds
+    t0 = time.perf_counter()
+    x = torch.from_numpy(rng.integers(0, 204, kdtype.CHAIN_SHAPE)
+                         .astype(np.int32)).to(dev)
+    p_ms, want = cuda_ms(
+        lambda: kdtype.chain_plain(x, kdtype.CHAIN_ROUNDS, "i32"), 1)
+    for dtype in kdtype.CHAIN_DTYPES:
+        k_ms, got = cuda_ms(
+            lambda: kdtype.chain(x, kdtype.CHAIN_ROUNDS, dtype), 3)
+        check("kdtype_chain", got, want, f"{dtype}")
+        if dtype == "i32":
+            rows["kdtype_chain"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=None,
+                **bound(8 * x.numel(), OPS_PER_ROUND_G * x.numel()
+                        * kdtype.CHAIN_ROUNDS, clock_hz))
+    wide = torch.from_numpy(rng.integers(0, 256, (64, 256))
+                            .astype(np.int32)).to(dev)
+    for dtype in kdtype.CHAIN_DTYPES[1:]:       # lanes that wrap in 8 bits
+        check("kdtype_chain", kdtype.chain(wide, 41, dtype),
+              kdtype.chain_plain(wide, 41, dtype), f"{dtype} wrapping")
+    print(f"kernel G vs plain: {len(kdtype.CHAIN_DTYPES)} types x "
+          f"{kdtype.CHAIN_ROUNDS} rounds on {kdtype.CHAIN_SHAPE} "
+          f"bit-identical ({time.perf_counter() - t0:.1f} s)")
+
+    # --- H: every mode and stream count at the probe's shape and rounds
+    t0 = time.perf_counter()
+    x = torch.from_numpy(rng.integers(-999, 999, kilp.SHAPE)
+                         .astype(np.int32)).to(dev)
+    for mode in kilp.MODES:
+        for ns in kilp.STREAMS:
+            k_ms, got = cuda_ms(
+                lambda: kilp.streams(x, ns, mode, kilp.ROUNDS), 3)
+            p_ms, want = cuda_ms(
+                lambda: kilp.streams_plain(x, ns, mode, kilp.ROUNDS), 1)
+            check("kilp_streams", got, want, f"{mode} streams={ns}")
+            check("kilp_streams", kilp.streams(x, ns, mode, 25, -2),
+                  kilp.streams_plain(x, ns, mode, 25, -2),
+                  f"{mode} streams={ns} c=-2")
+            if (mode, ns) == ("int", 8):
+                ops = x.numel() * kilp.ROUNDS * ns * OPS_PER_ROUND_H
+                rows["kilp_streams"] = dict(
+                    ms=k_ms, plain_ms=p_ms, library_ms=None,
+                    **bound(8 * x.numel(), ops, clock_hz))
+    print(f"kernel H vs plain: {len(kilp.MODES)} modes x {kilp.STREAMS} "
+          f"streams x {kilp.ROUNDS} rounds on {kilp.SHAPE} bit-identical "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # --- the probes' own entry points: their tables, launches counted
+    counters = {"kablate": kablate.forward_regs_ablated,
+                "kdtype_op": kdtype.elementwise,
+                "kdtype_chain": kdtype.chain, "kilp_streams": kilp.streams}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    abl_ms = kablate.main(["--iters", "10"])
+    dt = kdtype.main([])
+    ilp = kilp.main([])
+    for name, fn in counters.items():
+        assert fn.launches > 0, f"the probes never launched {name}"
+        rows[name]["launches"] = fn.launches
+    assert all(r["right"] for r in dt["ops"] + dt["chain"]), \
+        "a kdtype row is wrong"
+    # the loops are there: half the rounds take clearly less time (where
+    # a run is long enough to stand clear of a launch's own cost)
+    timed_rows = [r for r in dt["chain"] + ilp if r["ms"] > 0.06]
+    assert len(timed_rows) > len(ilp) // 2, "the probes' runs are too short"
+    for r in timed_rows:
+        assert r["half_rounds_ms"] < 0.8 * r["ms"], f"no loop in {r}"
+    assert abs(abl_ms["full"] - abl_ms["kernel A"]) \
+        < 0.1 * abl_ms["kernel A"], "full is not kernel A's time"
+    print(f"{tag} probes' tables: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -247,17 +776,36 @@ def main() -> int:
     tag = f"[{card}]"
 
     # --- phase 2: build -------------------------------------------------
+    # both libraries at once, one nvcc per source
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        paths = list(pool.map(lambda lib: _build.build(library=lib),
+                              (_build.MAIN, _build.PROBES)))
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path}")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    _build.load(library=_build.PROBES)
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {paths[0]}, "
+          f"{paths[1].name}")
+    for lib in (_build.MAIN, _build.PROBES):
+        for name, (regs, st, ld) in ptxas_summary(
+                _build.build_log(library=lib)).items():
+            if lib is _build.MAIN or "kablate" in name:
+                print(f"  ptxas: {name}: {regs} registers, spills {st} B "
+                      f"stored, {ld} B loaded")
+    kernel_a = {n: v for n, v in ptxas_summary(_build.build_log()).items()
+                if "acs_regs_kernel" in n}
+    assert len(kernel_a) == 2, f"kernel A's instantiations: {kernel_a}"
+    for name, (regs, st, ld) in kernel_a.items():
+        assert st == 0 and ld == 0, f"kernel A spills: {name} {st}/{ld}"
+    clock_hz = sm_clock_hz()
+    print(f"bounds against {HBM_BYTES_S / 1e12} TB/s and "
+          f"{INT_LANES * SMS * clock_hz / 1e12:.2f} T int32 ops/s "
+          f"({SMS} SMs x {INT_LANES} lanes x {clock_hz / 1e6:.0f} MHz)")
 
     # --- phase 3: kernels vs plain versions ------------------------------
     rng = np.random.default_rng(2024)
-    errs = {"acs_regs": 0, "tb_walk": 0, "acs_words": 0, "tb_words": 0}
+    errs = dict.fromkeys(("acs_regs", "tb_walk", "acs_words", "tb_words",
+                          "kablate", "kdtype_op", "kdtype_chain",
+                          "kilp_streams"), 0)
 
     def check(kernel, got, want, what):
         e = max_abs_err(got, want)
@@ -463,21 +1011,76 @@ def main() -> int:
           f"{FB_MAIN}")
     del regs, dec, dec_p
 
-    meta = {
-        "acs_regs": ("viterbi_tpu_torch/csrc/acs_regs.cu",
-                     "viterbi_tpu/ops/acs_pallas.py:463"),
-        "tb_walk": ("viterbi_tpu_torch/csrc/tb_walk.cu",
-                    "viterbi_tpu/ops/traceback.py:206"),
-        "acs_words": ("viterbi_tpu_torch/csrc/acs_words.cu",
-                      "viterbi_tpu/ops/acs_pallas.py:830"),
-        "tb_words": ("viterbi_tpu_torch/csrc/tb_words.cu",
-                     "viterbi_tpu/ops/traceback.py:374"),
+    # bounds of kernels A-D on the main-path batch: the bytes each must
+    # move (B and D: what this run's walk reads) and its integer operations
+    K = -(-n // ck)
+    state_bytes = B_MAIN * 64 * 4
+    bounds = {
+        "acs_regs": bound(B_MAIN * n * 4 + (K + 2) * state_bytes,
+                          B_MAIN * n * OPS_PER_STEP_A, clock_hz),
+        "tb_walk": bound(2 * K * B_MAIN * 4, K * B_MAIN * OPS_PER_CKPT_B,
+                         clock_hz),
+        "acs_words": bound(B_MAIN * n * (4 + 8) + 2 * state_bytes,
+                           B_MAIN * n * OPS_PER_STEP_C, clock_hz),
+        "tb_words": bound(B_MAIN * n * 8 + B_MAIN * FB_MAIN // 24 * 4,
+                          B_MAIN * FB_MAIN * OPS_PER_BIT_D, clock_hz),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
-               for name, (src, rep) in meta.items()]
+
+    # --- phases 8-11: the superframe chain, RS, EEP, replay -----------------
+    rung("cuda_fused")
+    t0 = time.perf_counter()
+    sf_launches = superframe_path(dev, tag, check)
+    print(f"superframe phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rs_export(tag)
+    rs_forms(tag)
+    print(f"RS phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eep_launches = eep_path(dev, tag, check)
+    replay_phase(ROOT)
+    print(f"EEP and replay phases: {time.perf_counter() - t0:.1f} s; "
+          f"launches on the superframe path {sf_launches}, on the EEP path "
+          f"{eep_launches}")
+
+    # --- phase 12: the probes -------------------------------------------------
+    t0 = time.perf_counter()
+    probe_rows = probes_phase(dev, tag, check, clock_hz)
+    print(f"probes phase: {time.perf_counter() - t0:.1f} s")
+
+    csrc = "viterbi_tpu_torch/csrc/"
+    meta = {
+        "acs_regs": (csrc + "acs_regs.cu",
+                     "viterbi_tpu/ops/acs_pallas.py:463"),
+        "tb_walk": (csrc + "tb_walk.cu", "viterbi_tpu/ops/traceback.py:206"),
+        "acs_words": (csrc + "acs_words.cu",
+                      "viterbi_tpu/ops/acs_pallas.py:830"),
+        "tb_words": (csrc + "tb_words.cu",
+                     "viterbi_tpu/ops/traceback.py:374"),
+        "kablate": (csrc + "probes/kablate.cu", "scripts/kablate.py:68"),
+        "kdtype_op": (csrc + "probes/kdtype.cu", "scripts/kdtype.py:27"),
+        "kdtype_chain": (csrc + "probes/kdtype.cu", "scripts/kdtype.py:60"),
+        "kilp_streams": (csrc + "probes/kilp.cu", "scripts/kilp.py:30"),
+    }
+    kernels = []
+    for name, (src, rep) in meta.items():
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep}
+        if name in probe_rows:
+            row.update(probe_rows[name])
+        else:
+            # no single PyTorch call computes kernels A-D
+            row.update(launches=launches[name], ms=times[name][0],
+                       plain_ms=times[name][1], library_ms=None,
+                       **bounds[name])
+        row["max_abs_err"] = errs[name]
+        assert row["launches"] > 0 and row["max_abs_err"] == 0, row
+        kernels.append(row)
+        print(f"{tag} {name}: {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({100 * row['bound_ms'] / row['ms']:.1f} %; bytes "
+              f"{row['bound_bytes_ms']:.4f} ms, operations "
+              f"{row['bound_ops_ms']:.4f} ms), plain "
+              f"{row['plain_ms']:.3f} ms, library {row['library_ms']}, "
+              f"{row['launches']} launches on its path")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

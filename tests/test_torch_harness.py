@@ -142,6 +142,16 @@ def test_fault_injection_passes_and_rearms():
     assert not dispatch.state().safe_mode
 
 
+def test_fault_injection_covers_the_rs_export(monkeypatch):
+    """Part (c): a null superframe buffer must return -1 and latch, as in
+    the JAX package's harness; an export that shrugs it off fails."""
+    assert jax_bench.fault_injection_test()
+    monkeypatch.setattr(benchmark.api, "rs_check_superframe",
+                        lambda *args: 0)
+    assert not benchmark.fault_injection_test()
+    assert not dispatch.state().safe_mode
+
+
 def test_device_speed_test_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA device"):
         benchmark.device_speed_test(1, loops=1, batch=2, framebits=24)

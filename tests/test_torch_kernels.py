@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels against their plain torch versions on the
 card, bit for bit: the pytest twin of ``chip_smoke.py``'s kernel phase
-(kernels A and B of the fused path, C and D of the words path).
+(kernels A and B of the fused path, C and D of the words path, E to H of
+the probes).
 
 Every test here needs a CUDA device and skips without one (through the
 ``cuda`` fixture). Run them on the card with
@@ -15,6 +16,7 @@ from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import traceback as tb
+from viterbi_tpu_torch.probes import kablate, kdtype, kilp
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +159,98 @@ def test_decode_on_card_matches_golden(cuda, framebits):
     packed = torch.from_numpy(acs_cuda.pack_symbols_host(syms)).to(cuda)
     got = acs_cuda.decode(packed, framebits, packed="bt")
     assert got.is_cuda and np.array_equal(got.cpu().numpy(), expect)
+
+
+@pytest.mark.parametrize("kbps", [32, 128])
+def test_superframe_chain_on_card_matches_plain_only_call(cuda, kbps):
+    """Kernels A and B on the chain's unpacked symbols (decode()'s
+    checkpoint period, no front pad) against the same call through plain
+    versions only, on the card. Tolerance zero."""
+    from viterbi_tpu_torch.models import dab
+    _, syms = channel.make_superframes(6, kbps, seed=kbps, ebn0_db=3.0,
+                                       uncorrectable=1)
+    dsyms = torch.from_numpy(syms).to(cuda)
+    before = acs_cuda.forward_regs.launches, tb.tb_walk.launches
+    audio, errors = dab.decode_audio_superframes(dsyms, kbps)
+    assert (acs_cuda.forward_regs.launches, tb.tb_walk.launches) == \
+        (before[0] + 1, before[1] + 1)
+    p_audio, p_errors = dab.decode_audio_superframes(dsyms, kbps,
+                                                     use_kernels=False)
+    assert (acs_cuda.forward_regs.launches, tb.tb_walk.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(audio, p_audio) and torch.equal(errors, p_errors)
+    assert (errors == -1).any() and (errors >= 0).any()
+
+
+def test_punctured_frames_on_card_match_plain_only_call(cuda):
+    from viterbi_tpu_torch.models import dab
+    from viterbi_tpu_torch.models import puncture as P
+    _, syms = channel.make_frames(B, 768, seed=2, ebn0_db=6.0)
+    rec = torch.from_numpy(P.puncture(
+        syms, P.eep_profile(32, 2, "B").mask()).astype(np.int32)).to(cuda)
+    got = dab.decode_punctured_frames(rec, 32, 2, "B")
+    assert torch.equal(got, dab.decode_punctured_frames(rec, 32, 2, "B",
+                                                        use_kernels=False))
+
+
+@pytest.mark.parametrize("framebits,packed", [(3072, "bt"), (768, True),
+                                              (64, "bt"), (32, "bt")])
+@pytest.mark.parametrize("name,ablate", kablate.VARIANTS)
+def test_ablation_kernel_matches_plain(cuda, name, ablate, framebits,
+                                       packed):
+    rng = np.random.default_rng(framebits)
+    syms = _symbols(rng, framebits, packed, cuda)
+    before = kablate.forward_regs_ablated.launches
+    r_k, m_k = kablate.forward_regs_ablated(syms, framebits + 6, ablate,
+                                            ckpt=24, packed=packed)
+    assert kablate.forward_regs_ablated.launches == before + 1
+    r_p, m_p = kablate.forward_regs_ablated_plain(syms, framebits + 6,
+                                                  ablate, ckpt=24,
+                                                  packed=packed)
+    assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p)
+    if not ablate:      # nothing left out: kernel A itself, bit for bit
+        r_a, m_a = acs_cuda.forward_regs(syms, framebits + 6, ckpt=24,
+                                         packed=packed)
+        assert torch.equal(r_k, r_a) and torch.equal(m_k, m_a)
+
+
+@pytest.mark.parametrize("dtype,op", [(d, o) for d in kdtype.OP_DTYPES
+                                      for o in kdtype.OPS]
+                         + list(kdtype.PACKED_OPS))
+def test_narrow_op_kernel_matches_plain(cuda, dtype, op):
+    lane = kdtype._lane_dtype(dtype)
+    bits = kdtype._BITS[lane]
+    lo = -(1 << (bits - 1)) if lane.startswith("i") else 0
+    rng = np.random.default_rng(bits + len(op))
+    x, y = (torch.from_numpy(rng.integers(lo, lo + (1 << bits),
+                                          kdtype.OP_SHAPE)
+                             .astype(np.int32)).to(cuda) for _ in range(2))
+    before = kdtype.elementwise.launches
+    got = kdtype.elementwise(op, dtype, x, y)
+    assert kdtype.elementwise.launches == before + 1
+    assert torch.equal(got, kdtype.elementwise_plain(op, dtype, x, y))
+
+
+@pytest.mark.parametrize("dtype", kdtype.CHAIN_DTYPES)
+@pytest.mark.parametrize("top", [204, 256])
+def test_chain_kernel_matches_plain(cuda, dtype, top):
+    """Lanes below 204 never wrap; up to 255 the narrow types do, and the
+    kernel must wrap as the plain version does."""
+    x = torch.from_numpy(np.random.default_rng(top).integers(
+        0, top, (64, 256)).astype(np.int32)).to(cuda)
+    before = kdtype.chain.launches
+    got = kdtype.chain(x, 41, dtype)
+    assert kdtype.chain.launches == before + 1
+    assert torch.equal(got, kdtype.chain_plain(x, 41, dtype))
+
+
+@pytest.mark.parametrize("mode", kilp.MODES)
+@pytest.mark.parametrize("nstreams", kilp.STREAMS)
+def test_streams_kernel_matches_plain(cuda, nstreams, mode):
+    x = torch.from_numpy(np.random.default_rng(nstreams).integers(
+        -999, 999, kilp.SHAPE).astype(np.int32)).to(cuda)
+    for c in (3, -2):
+        before = kilp.streams.launches
+        got = kilp.streams(x, nstreams, mode, 25, c)
+        assert kilp.streams.launches == before + 1
+        assert torch.equal(got, kilp.streams_plain(x, nstreams, mode, 25, c))

@@ -1,9 +1,12 @@
 """viterbi_tpu_torch — the PyTorch/CUDA port of ``viterbi_tpu``.
 
-The DAB mother-code Viterbi decoder (K=7, rate 1/4, 64 states) with the
-reference DLL's export surface, running on an NVIDIA Hopper card through
-two hand-written CUDA kernels (``csrc/``): the fused register-exchange
-ACS and the checkpoint-walk traceback. On a machine without a CUDA
+The DAB mother-code Viterbi decoder (K=7, rate 1/4, 64 states) and the
+RS(120,110) superframe check with the reference DLL's export surface,
+the DAB+ audio-superframe chain and EEP/UEP puncturing (``models``), on
+an NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``): the
+fused register-exchange ACS and the checkpoint-walk traceback on the
+main path, the decisions kernel and its word walk on the ``cuda_words``
+rung, and the timing probes of ``probes``. On a machine without a CUDA
 device every path runs on the plain torch versions of those kernels.
 
 This package imports torch and numpy only — never jax, never
@@ -18,6 +21,8 @@ from .api import (  # noqa: F401
     get_caps,
     initialize,
     last_output,
+    last_rs_output,
+    rs_check_superframe,
     wake_up,
 )
 

@@ -1,12 +1,16 @@
 """L4 public API — the PyTorch/CUDA twin of the DLL export surface
-(viterbi.def:4-8): ``deconvolve``, ``initialize``, ``get_caps``,
-``wake_up``, plus the batched ``deconvolve_batch``.
+(viterbi.def:4-8): ``deconvolve``, ``rs_check_superframe``,
+``initialize``, ``get_caps``, ``wake_up``, plus the batched
+``deconvolve_batch``.
 
 Return-code contracts match the reference:
   * ``deconvolve`` returns 0 on success; 1 when the safe-mode latch is
     set or an input that would have crashed the reference is detected
     (exc_handler.cpp:150-250); decoded MSB-first packed bytes are
     written into ``output``.
+  * ``rs_check_superframe`` returns the number of corrected byte
+    errors, or -1 on an uncorrectable codeword or a crash
+    (rschecksf.cpp:64-93); corrected data bytes go into ``out_vector``.
   * ``initialize`` re-reads the config and re-arms safe mode
     (dllmain.cpp:156-160).
 
@@ -23,6 +27,7 @@ import torch
 
 from . import constants as C
 from .ops import acs, acs_cuda
+from .ops import rs as rs_ops
 from .ops import traceback as tb
 from .runtime import calllog, dispatch, faults
 
@@ -53,6 +58,11 @@ _tls = threading.local()
 def last_output() -> np.ndarray | None:
     """This thread's most recent ``deconvolve`` result (packed bytes)."""
     return getattr(_tls, "deco_out", None)
+
+
+def last_rs_output() -> np.ndarray | None:
+    """This thread's most recent ``rs_check_superframe`` output bytes."""
+    return getattr(_tls, "rs_out", None)
 
 
 def initialize(config_path: str | None = None) -> bool:
@@ -241,3 +251,84 @@ def deconvolve_batch(framebits: int, symbols_batch,
         rec.capture_symbols(syms, source=symbols_batch)
         out = _decode_batch(syms, framebits, packed=packed)
     return 0, out
+
+
+def _byte_view(buf) -> np.ndarray | None:
+    """A writable uint8 array over the caller's buffer: the ndarray
+    itself, or a view of a ``bytearray`` or ``memoryview``; None for an
+    object without the buffer protocol (a list)."""
+    if isinstance(buf, np.ndarray):
+        return buf
+    try:
+        return np.frombuffer(buf, dtype=np.uint8)
+    except TypeError:
+        return None
+
+
+def _write_prefix(out_vector, out: np.ndarray, rs_dims: int,
+                  n_ok: int) -> None:
+    """The -1 partial write: the ``n_ok`` codewords before the first
+    failure go to their interleaved places (byte k of codeword j at
+    ``j + k*rs_dims``) in one assignment; every other byte of the
+    caller's buffer stays as it was."""
+    idx = (np.arange(C.RS_KK)[:, None] * rs_dims
+           + np.arange(n_ok)[None, :]).ravel()
+    vals = out[idx]
+    view = _byte_view(out_vector)
+    if view is None:
+        # no buffer to view (a list): read, patch, write back one slice
+        end = rs_dims * C.RS_KK
+        patched = np.array(out_vector[:end], dtype=np.uint8)
+        patched[idx] = vals
+        _buf_write(out_vector, slice(0, end), patched)
+    elif view.ndim == 1:
+        view[idx] = vals
+    else:
+        # flat positions unraveled onto the array itself: reshape(-1) of
+        # a non-contiguous view would copy and lose the write
+        view[np.unravel_index(idx, view.shape)] = vals
+
+
+@faults.guarded(-1)
+def rs_check_superframe(p, start_ix: int = 0, rs_dims: int = 0,
+                        out_vector=None) -> int:
+    """Check/correct a DAB+ superframe (rschecksf.cpp:64-93).
+
+    ``p``: array-like of rs_dims*120 bytes, byte-interleaved. The
+    corrected rs_dims*110 data bytes are written to ``out_vector`` if
+    given (an ndarray of any contiguity, a ``bytearray`` or a writable
+    ``memoryview``) and kept per thread for ``last_rs_output()``.
+    ``start_ix`` is accepted and ignored, as in the reference
+    (rschecksf.cpp:69).
+
+    On -1 (uncorrectable codeword) the reference has already scattered
+    every corrected codeword before the failed one into the caller's
+    buffer (rschecksf.cpp:74-88); bytes of the failed and later codewords
+    stay untouched. The same partial write happens here.
+    """
+    if p is None:
+        # fault injection (c): RScheckSuperframe(NULL, 0, 10, NULL)
+        raise faults.CrashError("null superframe buffer")
+    if not rs_dims or rs_dims < 0:
+        raise faults.ValidationError(f"bad rs_dims {rs_dims}")
+    rs_dims = int(rs_dims)
+    buf = np.asarray(p).reshape(-1)
+    if buf.size < rs_dims * C.RS_N:
+        raise faults.ValidationError("superframe buffer too short")
+    if out_vector is not None and \
+            _buf_len(out_vector) < rs_dims * C.RS_KK:
+        raise faults.ValidationError("output buffer too short")
+    with calllog.record("rscs", rs_dims=rs_dims) as rec:
+        buf = buf[: rs_dims * C.RS_N]
+        rec.capture_symbols(buf, source=p)
+        sf = torch.from_numpy(np.ascontiguousarray(buf, dtype=np.int32)) \
+            .to(dispatch.state().device)
+        errors, out, n_ok = rs_ops.rs_check_superframe(sf, rs_dims)
+        errors, n_ok, out = int(errors), int(n_ok), out.cpu().numpy()
+    if out_vector is not None:
+        if errors != -1:
+            _buf_write(out_vector, slice(0, out.size), out)
+        else:
+            _write_prefix(out_vector, out, rs_dims, n_ok)
+    _tls.rs_out = out
+    return errors

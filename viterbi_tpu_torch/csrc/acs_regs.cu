@@ -40,55 +40,16 @@
 // symbol layout ([B, T] words) makes each warp load touch 32 rows; each
 // 32-byte sector then serves 8 steps of one frame from L1, so the layout
 // costs cache lines, not memory bandwidth.
+//
+// The device code is in acs_regs.cuh, which the ablation probe
+// (probes/kablate.cu) instantiates too, with parts of the step left out.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "trellis.cuh"
+#include "acs_regs.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 128;
-
-__device__ __forceinline__ void seed(int (&M)[kStates],
-                                     uint32_t (&R)[kStates],
-                                     const int32_t* __restrict__ init) {
-#pragma unroll
-  for (int s = 0; s < kStates; ++s) {
-    M[s] = __ldg(init + s);
-    R[s] = static_cast<uint32_t>(s);
-  }
-}
-
-template <bool kUnpacked>
-__device__ __forceinline__ void step(int (&M)[kStates],
-                                     uint32_t (&R)[kStates], int t,
-                                     const int32_t* __restrict__ frame,
-                                     int64_t st, int pad) {
-  int m8[8];
-  branch_metrics<kUnpacked>(
-      t >= pad ? frame + static_cast<int64_t>(t - pad) * st : nullptr, m8);
-  int N[kStates];
-  uint32_t NR[kStates];
-#pragma unroll
-  for (int b = 0; b < 32; ++b) {
-    const int m = m8[pattern(b)];
-    const int cm = 63 - m;
-    const int p0e = min(M[b] + m, 255), p1e = min(M[b + 32] + cm, 255);
-    const int p0o = min(M[b] + cm, 255), p1o = min(M[b + 32] + m, 255);
-    const bool de = p1e <= p0e, dodd = p1o <= p0o;
-    N[2 * b] = de ? p1e : p0e;
-    N[2 * b + 1] = dodd ? p1o : p0o;
-    NR[2 * b] = (de ? R[b + 32] : R[b]) << 1;
-    NR[2 * b + 1] = ((dodd ? R[b + 32] : R[b]) << 1) | 1u;
-  }
-#pragma unroll
-  for (int s = 0; s < kStates; ++s) {
-    M[s] = N[s];
-    R[s] = NR[s];
-  }
-  if (t & 1) renormalize(M);
-}
 
 template <bool kUnpacked>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -96,39 +57,8 @@ acs_regs_kernel(const int32_t* __restrict__ sym, int64_t sb, int64_t st,
                 const int32_t* __restrict__ init, int B, int total, int pad,
                 int reset_at, int ckpt, int32_t* __restrict__ regs,
                 int32_t* __restrict__ met) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int32_t* frame = sym + static_cast<int64_t>(b) * sb;
-  const int32_t* my_init = init + static_cast<int64_t>(b) * kStates;
-  int M[kStates];
-  uint32_t R[kStates];
-  seed(M, R, my_init);
-  int k = 0;
-  int next_ck = min(ckpt, total);
-  int t = 0;
-  while (t < total) {
-    if (t == reset_at) seed(M, R, my_init);
-    // run to the next checkpoint, or to the reset if that comes first
-    const int wend = (t < reset_at && reset_at < next_ck) ? reset_at
-                                                          : next_ck;
-    for (; t + 6 <= wend; t += 6) {
-#pragma unroll
-      for (int j = 0; j < 6; ++j) step<kUnpacked>(M, R, t + j, frame, st, pad);
-    }
-#pragma unroll 1
-    for (; t < wend; ++t) step<kUnpacked>(M, R, t, frame, st, pad);
-    if (t == next_ck) {
-      int32_t* out = regs + static_cast<int64_t>(k) * kStates * B + b;
-#pragma unroll
-      for (int s = 0; s < kStates; ++s)
-        out[static_cast<int64_t>(s) * B] = static_cast<int32_t>(R[s]);
-      ++k;
-      next_ck = min(next_ck + ckpt, total);
-    }
-  }
-  int32_t* my_met = met + static_cast<int64_t>(b) * kStates;
-#pragma unroll
-  for (int s = 0; s < kStates; ++s) my_met[s] = M[s];
+  acs_regs_frame<kUnpacked, 0>(sym, sb, st, init, B, total, pad, reset_at,
+                               ckpt, regs, met);
 }
 
 }  // namespace

@@ -1,12 +1,16 @@
-"""Golden scalar model of the Viterbi decoder: the bit-exact oracle.
+"""Golden scalar models: the bit-exact oracles.
 
-The Viterbi half of ``viterbi_tpu.golden`` in numpy, importable where the
-port runs without jax: the K=7 rate-1/4 convolutional encoder
+``viterbi_tpu.golden`` in numpy, importable where the port runs without
+jax. Viterbi: the K=7 rate-1/4 convolutional encoder
 (viterbi-benchmark.cpp:303-311) and the soft-decision decoder with the
 reference's exact numerics — rounding-average branch metrics,
 saturating u8 path metrics, renormalize-at-150 every two steps,
 terminated-trellis chainback from state 0 (deconvolve.cpp:232-435).
-``tests/test_torch_constants.py`` pins it to the JAX package's golden.
+Reed-Solomon: the scalar RS(120,110) decoder with the reference's
+log-form bookkeeping (rschecksf.cpp:198-377), the superframe check
+(rschecksf.cpp:64-93) and a systematic encoder for fixtures.
+``tests/test_torch_constants.py`` and ``tests/test_torch_rs.py`` pin
+them to the JAX package's golden model.
 """
 
 from __future__ import annotations
@@ -138,3 +142,186 @@ def deconvolve_many(framebits: int, symbols: np.ndarray) -> np.ndarray:
 def deconvolve(framebits: int, symbols: np.ndarray) -> np.ndarray:
     """Full golden decode: uint8[ceil(framebits/8)] MSB-first packed bytes."""
     return deconvolve_many(framebits, np.asarray(symbols).reshape(1, -1))[0]
+
+
+# ---------------------------------------------------------------------------
+# Reed-Solomon RS(120,110) decoder (scalar, bit-exact)
+# ---------------------------------------------------------------------------
+
+_ATO_MOD, _INDEX_OF = C.gf256_tables()
+_A = int(C.RS_NN)  # 255, the "log of zero" sentinel
+
+
+def _gf_mul_log(log_a: int, log_b: int) -> int:
+    """alpha^(log_a + log_b) via the 768-entry pre-reduced antilog table."""
+    return int(_ATO_MOD[log_a + log_b])
+
+
+def rs_decode_codeword(data: np.ndarray) -> tuple[int, np.ndarray]:
+    """Decode one shortened RS(120,110) codeword in place.
+
+    ``data``: int array of 120 byte values (data[0..109] message,
+    data[110..119] parity). Returns ``(count, corrected)`` where count is
+    the number of corrected byte errors or -1 if uncorrectable — exactly
+    DECODE_RS's contract (rschecksf.cpp:198-377).
+    """
+    data = np.asarray(data, dtype=np.int64).copy()
+    n = C.RS_N
+    nroots = C.RS_NROOTS
+    pad = C.RS_PAD
+
+    # Syndromes: s_i = sum_j data[j] * alpha^(i*(n-1-j)), Horner form.
+    s = np.full(nroots, int(data[0]), dtype=np.int64)
+    for j in range(1, n):
+        for i in range(nroots):
+            if s[i] == 0:
+                s[i] = data[j]
+            else:
+                s[i] = data[j] ^ _gf_mul_log(int(_INDEX_OF[s[i]]), i)
+    if not s.any():
+        return 0, data  # valid codeword, nothing to do
+
+    slog = [int(_INDEX_OF[v]) for v in s]  # syndromes in log form
+
+    # Berlekamp-Massey: find the error locator polynomial lambda (log form
+    # bookkeeping matches the reference so intermediate values agree).
+    lam = [1] + [0] * nroots          # poly form
+    b = [_A] * (nroots + 1)           # log form, b(x) = 1
+    b[0] = 0
+    el = 0
+    for r in range(1, nroots + 1):
+        discr = 0
+        for i in range(r):
+            if lam[i] != 0 and slog[r - 1 - i] != _A:
+                discr ^= _gf_mul_log(int(_INDEX_OF[lam[i]]), slog[r - 1 - i])
+        dlog = int(_INDEX_OF[discr])
+        if dlog == _A:  # zero discrepancy: b(x) <- x*b(x)
+            b = [_A] + b[:-1]
+        else:
+            t = [lam[0]] + [
+                lam[i + 1] ^ (_gf_mul_log(dlog, b[i]) if b[i] != _A else 0)
+                for i in range(nroots)
+            ]
+            if 2 * el <= r - 1:
+                el = r - el
+                b = [(_A if lam[i] == 0 else
+                      int(C.mod255(int(_INDEX_OF[lam[i]]) - dlog + _A)))
+                     for i in range(nroots + 1)]
+            else:
+                b = [_A] + b[:-1]
+            lam = t
+
+    lam_log = [int(_INDEX_OF[v]) for v in lam]
+    deg_lambda = max((i for i in range(nroots + 1) if lam_log[i] != _A),
+                     default=0)
+
+    # Chien search over the whole field, aborting once all roots found.
+    reg = list(lam_log)
+    roots: list[int] = []
+    for i in range(1, C.RS_NN + 1):
+        q = 1
+        for j in range(deg_lambda, 0, -1):
+            if reg[j] != _A:
+                reg[j] = int(C.mod255(reg[j] + j))
+                q ^= int(_ATO_MOD[reg[j]])
+        if q != 0:
+            continue
+        roots.append(i)
+        if len(roots) == deg_lambda:
+            break
+    if len(roots) != deg_lambda:
+        return -1, data  # uncorrectable
+
+    # Error evaluator omega(x) = s(x) * lambda(x) mod x^nroots, log form.
+    deg_omega = deg_lambda - 1
+    omega_log = []
+    for i in range(deg_omega + 1):
+        tmp = 0
+        for j in range(i, -1, -1):
+            if slog[i - j] != _A and lam_log[j] != _A:
+                tmp ^= _gf_mul_log(slog[i - j], lam_log[j])
+        omega_log.append(int(_INDEX_OF[tmp]))
+
+    # Forney: error magnitude at each root; positions inside the shortened
+    # region (root > PAD) only — earlier roots fall in the implicit zeros.
+    count = len(roots)
+    for root in reversed(roots):
+        if root < pad + 1:
+            continue
+        num1 = 0
+        for i in range(deg_omega, -1, -1):
+            if omega_log[i] != _A:
+                num1 ^= int(_ATO_MOD[int(C.mod255(omega_log[i] + i * root))])
+        if num1 == 0:
+            continue
+        num2 = int(_ATO_MOD[C.RS_NN - root])
+        den = 0
+        top = min(deg_lambda, nroots - 1) & ~1
+        for i in range(top, -1, -2):
+            if lam_log[i + 1] != _A:
+                den ^= int(_ATO_MOD[int(C.mod255(lam_log[i + 1] + i * root))])
+        tmp = (int(_INDEX_OF[num1]) + int(_INDEX_OF[num2])
+               + (C.RS_NN - int(_INDEX_OF[den])))
+        data[root - 1 - pad] ^= int(_ATO_MOD[tmp])
+
+    return count, data
+
+
+def rs_check_superframe(p: np.ndarray, rs_dims: int) -> tuple[int, np.ndarray]:
+    """Check/correct a DAB+ superframe of ``rs_dims`` interleaved codewords.
+
+    ``p``: uint8[rs_dims * 120] byte-interleaved input (codeword j's k-th
+    byte at p[j + k*rs_dims]). Returns ``(errors, out)`` with ``out`` the
+    uint8[rs_dims * 110] corrected data, errors = total corrected bytes or
+    -1 on the first uncorrectable codeword — RScheckSuperframe's contract
+    (rschecksf.cpp:64-93).
+    """
+    p = np.asarray(p, dtype=np.uint8).reshape(-1)
+    out = np.zeros(rs_dims * C.RS_KK, dtype=np.uint8)
+    errors = 0
+    for j in range(rs_dims):
+        block = p[j::rs_dims][:C.RS_N].astype(np.int64)
+        count, corrected = rs_decode_codeword(block)
+        if count == -1:
+            return -1, out
+        errors += count
+        out[j::rs_dims] = corrected[:C.RS_KK].astype(np.uint8)
+    return errors, out
+
+
+def _generator_poly() -> np.ndarray:
+    """g(x) = prod_{i=0..9} (x - alpha^i); g[i] is the coefficient of x^i,
+    monic with degree 10."""
+    mul = C.gf256_mul_table().astype(np.int64)
+    g = np.zeros(C.RS_NROOTS + 1, dtype=np.int64)
+    g[0] = 1
+    for i in range(C.RS_NROOTS):
+        root = int(_ATO_MOD[i])
+        shifted = np.concatenate([[0], g[:-1]])            # x * g(x)
+        g = shifted ^ mul[g, root]                         # + alpha^i * g(x)
+    return g
+
+
+def rs_encode_many(messages: np.ndarray) -> np.ndarray:
+    """Systematic RS(120,110) encoder over N messages at once (for
+    fixtures; the reference has none): uint8[N, 110] -> uint8[N, 120].
+
+    Appends 10 parity bytes so each 120-byte word evaluates to zero at
+    alpha^0..alpha^9 in the padded RS(255,245) sense of the decoder's
+    Horner syndrome loop. LFSR long division, one message byte per round
+    for all N words; the remainder holds x^9..x^0, high order first.
+    """
+    msg = np.asarray(messages, dtype=np.int64).reshape(-1, C.RS_KK)
+    mul = C.gf256_mul_table().astype(np.int64)
+    taps = _generator_poly()[:C.RS_NROOTS][::-1]
+    rem = np.zeros((msg.shape[0], C.RS_NROOTS), dtype=np.int64)
+    for j in range(C.RS_KK):
+        fb = rem[:, 0] ^ msg[:, j]
+        rem = np.concatenate([rem[:, 1:], np.zeros_like(rem[:, :1])], axis=1)
+        rem ^= mul[taps[None, :], fb[:, None]]         # mul[., 0] == 0
+    return np.concatenate([msg, rem], axis=1).astype(np.uint8)
+
+
+def rs_encode_codeword(message: np.ndarray) -> np.ndarray:
+    """``rs_encode_many`` for one message: uint8[110] -> uint8[120]."""
+    return rs_encode_many(np.asarray(message).reshape(1, C.RS_KK))[0]

@@ -160,16 +160,20 @@ def device_speed_test(variant: int, loops: int = 30,
 
 
 def fault_injection_test() -> bool:
-    """The reference's deliberate crashes, latch and re-arm checks
-    (viterbi-benchmark.cpp:444-481), parts (a) and (b): a null symbol
-    buffer returns 1 and latches; a valid call still returns 1 until
-    ``initialize()`` re-arms."""
+    """The reference's three deliberate crashes, latch and re-arm checks
+    (viterbi-benchmark.cpp:444-481). (a)+(b): a null symbol buffer
+    returns 1 and latches; a valid call still returns 1 until
+    ``initialize()`` re-arms. (c): a null superframe buffer returns -1
+    and latches too."""
     ok = api.deconvolve(0, None, 0, None) == 1
     ok &= dispatch.state().safe_mode
     syms = golden.hard_to_soft(golden.encode(np.zeros(48, dtype=np.uint8)))
     ok &= api.deconvolve(48, syms) == 1          # still latched
     api.initialize()                              # re-arm
     ok &= api.deconvolve(48, syms) == 0
+    ok &= api.rs_check_superframe(None, 0, 10, None) == -1
+    ok &= dispatch.state().safe_mode
+    api.initialize()
     return bool(ok)
 
 

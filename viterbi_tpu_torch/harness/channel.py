@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import constants as C
+from .. import golden
 
 EBN0_DB = 3.0      # reference operating point (viterbi-benchmark.cpp:60)
 GAIN = 32.0
@@ -80,6 +81,43 @@ def make_frames(nframes: int, framebits: int, seed: int = 0,
         syms[i:i + step] = awgn_soft_symbols(
             encode_batch(bits[i:i + step]), rng, ebn0_db)
     return bits, syms
+
+
+def make_superframes(n: int, bitrate_kbps: int, seed: int = 0,
+                     ebn0_db: float = EBN0_DB, uncorrectable: int = 0):
+    """Generate ``n`` DAB+ audio superframes of one subchannel: random
+    audio -> RS(120,110) -> byte interleave -> bits -> encoder + AWGN.
+
+    The first ``uncorrectable`` superframes get nine byte errors in one
+    codeword before the convolutional encoder (more than RS corrects), so
+    the -1 path occurs whatever the noise does.
+
+    Returns ``audio`` uint8[n, rs_dims, 110], the encoded data bytes per
+    codeword, and ``syms`` int32[n, 5, 4*(framebits+6)] soft symbols of
+    the superframe's five logical frames.
+    """
+    framebits = 24 * bitrate_kbps
+    rs_dims = 5 * framebits // (8 * C.RS_N)
+    if rs_dims * 8 * C.RS_N != 5 * framebits:
+        raise ValueError(f"{bitrate_kbps} kbit/s does not fill whole RS "
+                         f"codewords in a DAB+ superframe")
+    rng = np.random.default_rng(seed)
+    audio = rng.integers(0, 256, (n, rs_dims, C.RS_KK), dtype=np.uint8)
+    cws = golden.rs_encode_many(audio.reshape(-1, C.RS_KK)) \
+        .reshape(n, rs_dims, C.RS_N)
+    for i in range(min(uncorrectable, n)):
+        pos = rng.choice(C.RS_N, 9, replace=False)
+        cws[i, rng.integers(rs_dims), pos] ^= \
+            rng.integers(1, 256, 9).astype(np.uint8)
+    sf = cws.transpose(0, 2, 1).reshape(n, rs_dims * C.RS_N)
+    bits = np.unpackbits(sf, axis=1).reshape(n * 5, framebits)
+    width = C.RATE * (framebits + C.TAIL_BITS)
+    syms = np.empty((n * 5, width), dtype=np.int32)
+    step = max(1, _NOISE_CHUNK_SYMBOLS // width)
+    for i in range(0, n * 5, step):
+        syms[i:i + step] = awgn_soft_symbols(
+            encode_batch(bits[i:i + step]), rng, ebn0_db)
+    return audio, syms.reshape(n, 5, width)
 
 
 def ber_fer(decoded_bytes: np.ndarray, bits: np.ndarray):

@@ -42,17 +42,18 @@ def branch_metrics(syms4: torch.Tensor) -> torch.Tensor:
     return (m >> 2) & 63
 
 
-def acs_step(metrics: torch.Tensor, m: torch.Tensor):
+def acs_step(metrics: torch.Tensor, m: torch.Tensor, saturate: bool = True):
     """One trellis step. metrics: [B, 64], m: [B, 32] branch metrics.
 
-    Returns (new_metrics [B, 64], decisions [B, 64] bool).
+    Returns (new_metrics [B, 64], decisions [B, 64] bool). The adds
+    saturate at 255 unless ``saturate`` is off (the ablation probe).
     """
     cm = 63 - m
     lo, hi = metrics[:, :32], metrics[:, 32:]
-    p0e = torch.clamp_max(lo + m, C.METRIC_MAX)
-    p1e = torch.clamp_max(hi + cm, C.METRIC_MAX)
-    p0o = torch.clamp_max(lo + cm, C.METRIC_MAX)
-    p1o = torch.clamp_max(hi + m, C.METRIC_MAX)
+    p0e, p1e, p0o, p1o = lo + m, hi + cm, lo + cm, hi + m
+    if saturate:
+        p0e, p1e, p0o, p1o = (torch.clamp_max(p, C.METRIC_MAX)
+                              for p in (p0e, p1e, p0o, p1o))
     new = torch.stack([torch.minimum(p0e, p1e), torch.minimum(p0o, p1o)],
                       dim=-1).reshape(metrics.shape)
     dec = torch.stack([p1e <= p0e, p1o <= p0o], dim=-1).reshape(metrics.shape)

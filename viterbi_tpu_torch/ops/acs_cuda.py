@@ -41,6 +41,9 @@ from . import traceback as tb
 DECODE_CKPT = 24   # checkpoint period of decode(); see the module docstring
 ACS_THREADS = 64   # frames per block of kernel A
 WORDS_THREADS = 64  # frames per block of kernel C
+#: parts of kernel A's step that ``forward_regs_plain(ablate=)`` and the
+#: ablation probe's kernel can leave out
+ABLATIONS = frozenset({"noreg", "norenorm", "nosat", "nobm"})
 
 
 def pack_symbols(symbols: torch.Tensor, nsteps: int) -> torch.Tensor:
@@ -155,13 +158,21 @@ def _init_metrics(initial_metrics, B: int, device) -> torch.Tensor:
 def forward_regs_plain(symbols: torch.Tensor, nsteps: int,
                        initial_metrics: torch.Tensor | None = None,
                        ckpt: int | None = None, packed: bool | str = False,
-                       front_pad: int = 0):
+                       front_pad: int = 0, ablate=frozenset()):
     """Plain version of kernel A, batch-vectorized over [B, 64].
 
     Same arguments and results as ``forward_regs``. Registers shift by
     one input bit per step (the TPU kernels deferred a shift by 6 per
     six-step window; the values at every checkpoint are the same).
+
+    ``ablate`` leaves parts of the step out, as the ablation probe's
+    kernel does (``probes.kablate``): ``"noreg"`` (the registers keep
+    their seeds), ``"norenorm"``, ``"nosat"``, ``"nobm"`` (the branch
+    metric is symbol byte 0 for every butterfly).
     """
+    unknown = set(ablate) - ABLATIONS
+    if unknown:
+        raise ValueError(f"unknown ablation {sorted(unknown)}")
     total, ckpt, K, reset_at = _layout(nsteps, ckpt, front_pad)
     B = _batch(symbols, nsteps, packed)
     dev = symbols.device
@@ -184,12 +195,16 @@ def forward_regs_plain(symbols: torch.Tensor, nsteps: int,
             metrics, regs = init, state_idx.expand(B, -1)
         w = zero if t < front_pad else words[t - front_pad]
         s4 = (w[:, None] >> shifts) & 255                        # [B, 4]
-        metrics, dec = acs_ops.acs_step(metrics, acs_ops.branch_metrics(s4))
-        # new state 2b+u comes from b (dec 0) or b+32 (dec 1), input u
-        lo = regs[:, :32].repeat_interleave(2, dim=1)
-        hi = regs[:, 32:].repeat_interleave(2, dim=1)
-        regs = (torch.where(dec, hi, lo) << 1) | odd
-        if t % 2 == 1:
+        bm = s4[:, :1].expand(-1, 32) if "nobm" in ablate \
+            else acs_ops.branch_metrics(s4)
+        metrics, dec = acs_ops.acs_step(metrics, bm,
+                                        saturate="nosat" not in ablate)
+        if "noreg" not in ablate:
+            # new state 2b+u comes from b (dec 0) or b+32 (dec 1), input u
+            lo = regs[:, :32].repeat_interleave(2, dim=1)
+            hi = regs[:, 32:].repeat_interleave(2, dim=1)
+            regs = (torch.where(dec, hi, lo) << 1) | odd
+        if t % 2 == 1 and "norenorm" not in ablate:
             metrics = acs_ops.renormalize(metrics)
         if (t + 1) % ckpt == 0 or t + 1 == total:
             out[-(-(t + 1) // ckpt) - 1] = regs.T
