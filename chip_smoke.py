@@ -7,12 +7,15 @@ Phases (each raises on failure, so the exit code is non-zero):
   1. device: require a CUDA device; print the card's name and power limit;
   2. build: compile the decode kernels and the probes' kernels from
      viterbi_tpu_torch/csrc with nvcc, both libraries at the same time;
-     kernel A must keep its registers and spill nothing;
+     kernels A, C and E, in both forms (one lane a frame and four), must
+     spill nothing;
   3. kernels: kernel A (fused register-exchange ACS) and kernel B
      (checkpoint walk), kernel C (decisions) and kernel D (decision-word
      walk) against their plain torch versions on the card, bit for bit,
      over the frame sizes, layouts and anchors the decode paths can hand
-     them;
+     them; A and C in the form the batch selects and in each form by
+     name, also at batches that leave the last warp ragged, with a reset
+     inside a six-step window and at every checkpoint period;
   4. main path: initialize() must pick the cuda_fused rung; decode
      B=16384 noisy frames of 3072 bits through
      deconvolve_batch(packed=True), bit-equal to the golden model and
@@ -29,9 +32,10 @@ Phases (each raises on failure, so the exit code is non-zero):
      frames, the Eb/N0 sweep 1321 / 55 / 11 errors equal to golden, and
      fault injection must pass;
   7. times: both paths end to end; each kernel against its plain
-     version on the main-path batch, timed and held bit for bit; and
-     the main path's output against a decode through plain versions
-     only (forward_plain, then tb_words_plain);
+     version on the main-path batch, timed and held bit for bit; the
+     main path's output against a decode through plain versions only
+     (forward_plain, then tb_words_plain); and the batch sweep of
+     kernels A and C in both forms (probes.kbatch);
   8. superframe path: 2048 DAB+ audio superframes at 128 kbit/s (10240
      frames, 32768 RS codewords) through
      models.dab.decode_audio_superframes on the card: kernels A and B
@@ -94,6 +98,9 @@ SF_BAD = 8              # superframes with nine byte errors in one codeword
 SF_GOLDEN = 12          # superframes held against the golden model
 SF_PLAIN = 4            # superframes held against the CPU's plain path
 E_BATCH = 8192          # the ablation probe's batch (framebits FB_MAIN)
+# batches that leave the last warp ragged, for the forms of kernels A and
+# C whose lanes talk to each other
+RAGGED = (1, 3, 7, 9, 31, 33, 1000)
 
 # The card's peaks for the bounds: memory rate (data sheet), and issue
 # rates per SM and clock: 64 int32 lanes, 128 float32 lanes (an add or a
@@ -113,14 +120,17 @@ INT_LANES, FP32_LANES = 64, 128
 # final averages whose shift takes the >> 2 along (a+b+1, >> 3) = 16:
 # 36 in all, + 4 to unpack the word, + 8 complements (63 - m).
 # Renormalization: (1 compare + 64 fused sub-max) every other step =
-# 32.5. Kernel A's butterfly: 4 saturating adds, 2 compares, 2 selects,
-# then 2 selects and 2 shift-ors on the registers = 12. Kernel C's: the
-# same 8 on the metrics, 2 to turn the decisions into bits, 2 to place
-# them = 12.
+# 32.5. A butterfly's two survivors take five operations each, since
+# only the high path needs its cap (csrc/trellis.cuh, survivor): the low
+# path's add, the high path's capped add, the min of the two, and in
+# kernel A the compare and the select of the register, in kernel C the
+# difference and the funnel shift that brings its sign into the word:
+# 10 a butterfly. Kernel A shifts its 64 registers once a six-step
+# window (64 / 6 a step); kernel C inverts its two words once a step.
 BRANCH_METRIC_OPS = 4 + 8 * 2 + 8 * 2
 STEP_COMMON_OPS = BRANCH_METRIC_OPS + 4 + 8 + 32.5
-OPS_PER_STEP_A = 32 * 12 + STEP_COMMON_OPS
-OPS_PER_STEP_C = 32 * 12 + STEP_COMMON_OPS
+OPS_PER_STEP_A = 32 * 10 + 64 / 6 + STEP_COMMON_OPS
+OPS_PER_STEP_C = 32 * 10 + 2 + STEP_COMMON_OPS
 OPS_PER_ROUND_G = 3     # two fused add-mins and a xor
 OPS_PER_ROUND_H = 2     # int: two fused add-mins a stream (float: 4 ops)
 OPS_PER_CKPT_B = 6      # address (3), shift, mask, anchor compare
@@ -212,6 +222,42 @@ def window_bytes(rs):
         .cpu().numpy()
 
 
+FORMS = (None, 1, 4)     # kernels A and C: the batch's choice, then by name
+
+
+def hold_forward(dev, rng, check, batch, fb, packed, pad=0, ckpt=None,
+                 with_init=True, words_too=True) -> None:
+    """Kernels A and C in every form against their plain versions on one
+    shape, bit for bit."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.ops import acs_cuda
+    n = fb + C.TAIL_BITS
+    raw = rng.integers(0, 256, (batch, C.RATE * n), dtype=np.int32)
+    if packed:
+        words = acs_cuda.pack_symbols_host(raw)
+        raw = words if packed == "bt" else np.ascontiguousarray(words.T)
+    syms = torch.from_numpy(raw).to(dev)
+    init = (torch.from_numpy(rng.integers(0, 256, (batch, 64))
+                             .astype(np.int32)).to(dev)
+            if with_init else None)
+    what = (f"B={batch}, framebits {fb}, packed={packed}, front_pad={pad}, "
+            f"ckpt={ckpt}")
+    kw = dict(initial_metrics=init, packed=packed, front_pad=pad, ckpt=ckpt)
+    r_p, m_p = acs_cuda.forward_regs_plain(syms, n, **kw)
+    for lanes in FORMS:
+        r_k, m_k = acs_cuda.forward_regs(syms, n, lanes=lanes, **kw)
+        check("acs_regs", r_k, r_p, f"{what}, lanes={lanes} regs")
+        check("acs_regs", m_k, m_p, f"{what}, lanes={lanes} metrics")
+    if not words_too:
+        return
+    d_p, m_p = acs_cuda.forward_plain(syms, n, init, packed)
+    for lanes in FORMS:
+        d_k, m_k = acs_cuda.forward(syms, n, init, packed, lanes=lanes)
+        check("acs_words", d_k, d_p, f"{what}, lanes={lanes} decisions")
+        check("acs_words", m_k, m_p, f"{what}, lanes={lanes} metrics")
+
+
 def rung(name: str) -> None:
     """Select a rung through the config file; raises if it does not hold."""
     from viterbi_tpu_torch.harness import benchmark
@@ -240,11 +286,14 @@ def check_words_kernels(rng, dev, check) -> None:
             d_p, m_p = acs_cuda.forward_plain(
                 torch.from_numpy(raw).to(dev), n, init)
             for packed, host in layouts.items():
-                what = f"framebits {fb}, packed={packed}, init={with_init}"
-                d_k, m_k = acs_cuda.forward(torch.from_numpy(host).to(dev),
-                                            n, init, packed=packed)
-                check("acs_words", d_k, d_p, what + " decisions")
-                check("acs_words", m_k, m_p, what + " metrics")
+                dsym = torch.from_numpy(host).to(dev)
+                for lanes in FORMS:
+                    what = (f"framebits {fb}, packed={packed}, "
+                            f"init={with_init}, lanes={lanes}")
+                    d_k, m_k = acs_cuda.forward(dsym, n, init, packed=packed,
+                                                lanes=lanes)
+                    check("acs_words", d_k, d_p, what + " decisions")
+                    check("acs_words", m_k, m_p, what + " metrics")
     for fb in WALK_FRAMEBITS:
         n = fb + C.TAIL_BITS
         raw = rng.integers(0, 256, (B_CHECK, C.RATE * n), dtype=np.int32)
@@ -342,10 +391,11 @@ def hold_path_kernels(flat, framebits, check, what) -> None:
     from viterbi_tpu_torch.ops import traceback as tb
     n, ck = framebits + C.TAIL_BITS, acs_cuda.DECODE_CKPT
     what = f"{what}: {flat.shape[0]} x {framebits} unpacked, ckpt {ck}"
-    r_k, m_k = acs_cuda.forward_regs(flat, n, ckpt=ck)
     r_p, m_p = acs_cuda.forward_regs_plain(flat, n, ckpt=ck)
-    check("acs_regs", r_k, r_p, what + " regs")
-    check("acs_regs", m_k, m_p, what + " metrics")
+    for lanes in reversed(FORMS):       # the path's own form last
+        r_k, m_k = acs_cuda.forward_regs(flat, n, ckpt=ck, lanes=lanes)
+        check("acs_regs", r_k, r_p, f"{what}, lanes={lanes} regs")
+        check("acs_regs", m_k, m_p, f"{what}, lanes={lanes} metrics")
     gap = n - (r_k.shape[0] - 1) * ck
     check("tb_walk", tb.tb_walk(r_k, ck, gap), tb.tb_walk_plain(r_k, ck, gap),
           what + " windows")
@@ -616,10 +666,13 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
         n = fb + C.TAIL_BITS
         w = words(B_CHECK, n)
         for name, abl in kablate.VARIANTS:
-            r_k, m_k = kablate.forward_regs_ablated(w, n, abl, ck)
             r_p, m_p = kablate.forward_regs_ablated_plain(w, n, abl, ck)
-            check("kablate", r_k, r_p, f"{name} framebits {fb} regs")
-            check("kablate", m_k, m_p, f"{name} framebits {fb} metrics")
+            for lanes in FORMS:
+                r_k, m_k = kablate.forward_regs_ablated(w, n, abl, ck,
+                                                        lanes=lanes)
+                what = f"{name} framebits {fb}, lanes={lanes}"
+                check("kablate", r_k, r_p, what + " regs")
+                check("kablate", m_k, m_p, what + " metrics")
     n = FB_MAIN + C.TAIL_BITS
     w = words(E_BATCH, n)
     for name, abl in kablate.VARIANTS:
@@ -629,6 +682,9 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
             lambda: kablate.forward_regs_ablated_plain(w, n, abl, ck), 1)
         check("kablate", r_k, r_p, f"{name} B={E_BATCH} regs")
         check("kablate", m_k, m_p, f"{name} B={E_BATCH} metrics")
+        r_1, m_1 = kablate.forward_regs_ablated(w, n, abl, ck, lanes=1)
+        check("kablate", r_1, r_p, f"{name} B={E_BATCH}, one lane, regs")
+        check("kablate", m_1, m_p, f"{name} B={E_BATCH}, one lane, metrics")
         if not abl:
             r_a, m_a = acs_cuda.forward_regs(w, n, ckpt=ck, packed="bt")
             check("kablate", r_k, r_a, "full against kernel A, regs")
@@ -638,10 +694,11 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
                 ms=k_ms, plain_ms=p_ms, library_ms=None,
                 **bound(E_BATCH * (n * 4 + 256 + K * 256 + 256),
                         E_BATCH * n * OPS_PER_STEP_A, clock_hz))
-    del w, r_k, m_k, r_p, m_p, r_a, m_a
+    del w, r_k, m_k, r_p, m_p, r_a, m_a, r_1, m_1
     print(f"kernel E vs plain: {len(kablate.VARIANTS)} variants x "
-          f"(4 sizes at B={B_CHECK}, B={E_BATCH} x {FB_MAIN}) bit-identical, "
-          f"full equal to kernel A ({time.perf_counter() - t0:.1f} s)")
+          f"(4 sizes at B={B_CHECK}, B={E_BATCH} x {FB_MAIN}) in both forms "
+          f"bit-identical, full equal to kernel A "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # --- F: every (type, op) on the probe's shape
     t0 = time.perf_counter()
@@ -734,6 +791,7 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
         fn.launches = 0
     t0 = time.perf_counter()
     abl_ms = kablate.main(["--iters", "10"])
+    abl_one_ms = kablate.main(["--iters", "10", "--lanes", "1"])
     dt = kdtype.main([])
     ilp = kilp.main([])
     for name, fn in counters.items():
@@ -747,8 +805,9 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
     assert len(timed_rows) > len(ilp) // 2, "the probes' runs are too short"
     for r in timed_rows:
         assert r["half_rounds_ms"] < 0.8 * r["ms"], f"no loop in {r}"
-    assert abs(abl_ms["full"] - abl_ms["kernel A"]) \
-        < 0.1 * abl_ms["kernel A"], "full is not kernel A's time"
+    for table in (abl_ms, abl_one_ms):
+        assert abs(table["full"] - table["kernel A"]) \
+            < 0.1 * table["kernel A"], "full is not kernel A's time"
     print(f"{tag} probes' tables: {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -791,11 +850,18 @@ def main() -> int:
             if lib is _build.MAIN or "kablate" in name:
                 print(f"  ptxas: {name}: {regs} registers, spills {st} B "
                       f"stored, {ld} B loaded")
-    kernel_a = {n: v for n, v in ptxas_summary(_build.build_log()).items()
-                if "acs_regs_kernel" in n}
-    assert len(kernel_a) == 2, f"kernel A's instantiations: {kernel_a}"
-    for name, (regs, st, ld) in kernel_a.items():
-        assert st == 0 and ld == 0, f"kernel A spills: {name} {st}/{ld}"
+    # kernels A, C and E: one lane a frame and four, packed and unpacked
+    # symbols (E: six variants, packed); none may spill
+    forward = {n: v for lib in (_build.MAIN, _build.PROBES)
+               for n, v in ptxas_summary(_build.build_log(library=lib)).items()
+               if any(k in n for k in ("acs_regs_kernel", "acs_words_kernel",
+                                       "kablate_kernel"))}
+    for kernel, count in (("acs_regs_kernel", 4), ("acs_words_kernel", 4),
+                          ("kablate_kernel", 12)):
+        names = [n for n in forward if kernel in n]
+        assert len(names) == count, f"{kernel}'s instantiations: {names}"
+    for name, (regs, st, ld) in forward.items():
+        assert st == 0 and ld == 0, f"{name} spills: {st}/{ld} bytes"
     clock_hz = sm_clock_hz()
     print(f"bounds against {HBM_BYTES_S / 1e12} TB/s and "
           f"{INT_LANES * SMS * clock_hz / 1e12:.2f} T int32 ops/s "
@@ -838,10 +904,11 @@ def main() -> int:
                 if with_init else None)
         what = f"framebits {fb}, packed={packed}, front_pad={pad}"
         kw = dict(initial_metrics=init, packed=packed, front_pad=pad)
-        r_k, m_k = acs_cuda.forward_regs(syms, n, **kw)
         r_p, m_p = acs_cuda.forward_regs_plain(syms, n, **kw)
-        check("acs_regs", r_k, r_p, what + " regs")
-        check("acs_regs", m_k, m_p, what + " metrics")
+        for lanes in FORMS:
+            r_k, m_k = acs_cuda.forward_regs(syms, n, lanes=lanes, **kw)
+            check("acs_regs", r_k, r_p, f"{what}, lanes={lanes} regs")
+            check("acs_regs", m_k, m_p, f"{what}, lanes={lanes} metrics")
         # kernel B on those checkpoints: terminated, anchored, and
         # anchored at an interior checkpoint
         K = r_k.shape[0]
@@ -868,7 +935,25 @@ def main() -> int:
                                   anchor=anc, wrap_last6=True)
     check("tb_walk", got.cpu(), want, "wrap_last6")
     torch.cuda.synchronize()
-    print(f"kernels A, B vs plain: {len(cases)} shapes bit-identical "
+    print(f"kernels A, B vs plain: {len(cases)} shapes bit-identical, A in "
+          f"every form ({time.perf_counter() - t0:.1f} s)")
+    # ragged last warps, a reset inside a six-step window (front pads that
+    # six does not divide), every checkpoint period: A and C in every form
+    t0 = time.perf_counter()
+    ragged = [(64, "bt", 6, None), (96, False, 0, None), (32, True, 12, 14),
+              (768, "bt", 0, 24)]
+    for batch in RAGGED:
+        for fb, packed, pad, ckpt in ragged:
+            hold_forward(dev, rng, check, batch, fb, packed, pad, ckpt)
+    resets = [(pad, ck) for pad in (2, 4, 8, 10, 14, 20) for ck in (24, 14)]
+    for pad, ck in resets:
+        hold_forward(dev, rng, check, 33, 96, "bt", pad, ck, words_too=False)
+    for ck in range(2, 28, 2):
+        hold_forward(dev, rng, check, 65, 90, False, 0, ck, words_too=False)
+    torch.cuda.synchronize()
+    print(f"kernels A, C vs plain in every form: batches {RAGGED} x "
+          f"{len(ragged)} shapes, {len(resets)} resets inside a window, "
+          f"checkpoint periods 2..26 bit-identical "
           f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     check_words_kernels(rng, dev, check)
@@ -1010,6 +1095,32 @@ def main() -> int:
     print(f"main path bit-equal to the plain decode at B={B_MAIN} x "
           f"{FB_MAIN}")
     del regs, dec, dec_p
+    lanes_at_main = {
+        "acs_regs": acs_cuda._lanes(B_MAIN, acs_cuda.REGS_ONE_LANE_FRAMES,
+                                    None),
+        "acs_words": acs_cuda._lanes(B_MAIN, acs_cuda.WORDS_ONE_LANE_FRAMES,
+                                     None)}
+
+    # the batch sweep of kernels A and C: the wrapper's choice and each
+    # form by name; the choice must stay near the faster form
+    from viterbi_tpu_torch.probes import kbatch
+    t0 = time.perf_counter()
+    table = kbatch.sweep(acs_cuda, FB_MAIN, iters=5)
+    for batch, row in table["batch"].items():
+        print(f"{tag} sweep B={batch} packed bt, ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in row.items()))
+        for k in ("A", "C"):
+            best = min(v for name, v in row.items() if name.startswith(k))
+            assert row[k] < 1.3 * best + 0.05, \
+                f"kernel {k} at B={batch}: the batch's choice {row[k]:.3f} " \
+                f"ms against {best:.3f} ms for the faster form"
+    for section in ("layouts", "blocks"):
+        for key, row in table[section].items():
+            print(f"{tag} sweep {key}, ms: A {row['A']:.3f}, C "
+                  f"{row['C']:.3f}")
+    print(f"{tag} SM clock while kernel A runs, MHz: {table['clock_mhz']} "
+          f"(bounds use {clock_hz / 1e6:.0f})")
+    print(f"batch sweep: {time.perf_counter() - t0:.1f} s")
 
     # bounds of kernels A-D on the main-path batch: the bytes each must
     # move (B and D: what this run's walk reads) and its integer operations
@@ -1071,6 +1182,8 @@ def main() -> int:
             row.update(launches=launches[name], ms=times[name][0],
                        plain_ms=times[name][1], library_ms=None,
                        **bounds[name])
+            if name in lanes_at_main:     # the form taken at this batch
+                row["lanes"] = lanes_at_main[name]
         row["max_abs_err"] = errs[name]
         assert row["launches"] > 0 and row["max_abs_err"] == 0, row
         kernels.append(row)

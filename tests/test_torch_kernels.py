@@ -21,6 +21,20 @@ from viterbi_tpu_torch.probes import kablate, kdtype, kilp
 pytestmark = pytest.mark.cuda
 
 B = 256
+# batches that leave the last warp ragged: a frame is held by several
+# lanes that talk to each other, so idle lanes must stay alive
+RAGGED = (1, 3, 7, 9, 31, 33, 1000)
+# kernels A and C: the form the batch selects, one lane a frame, four
+FORMS = (None, 1, acs_cuda.LANES)
+REGS_SHAPES = [
+    (192, False, 0, True), (768, "bt", 12, False), (1536, True, 0, True),
+    (3072, "bt", 0, True), (3072, False, 6, False), (9216, "bt", 0, False),
+    (64, False, 0, True), (64, "bt", 0, False), (32, "bt", 0, True),
+    (32, False, 0, False)]
+WORDS_SHAPES = [
+    (192, False, True), (768, "bt", False), (1536, True, True),
+    (3072, "bt", True), (3072, False, False), (9216, True, False),
+    (64, "bt", True), (96, False, False), (2328, True, True)]
 
 
 @pytest.fixture
@@ -32,33 +46,60 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _symbols(rng, framebits, packed, dev):
+def _symbols(rng, framebits, packed, dev, batch=B):
     n = framebits + 6
-    raw = rng.integers(0, 256, (B, 4 * n), dtype=np.int32)
+    raw = rng.integers(0, 256, (batch, 4 * n), dtype=np.int32)
     if packed:
         words = acs_cuda.pack_symbols_host(raw)
         raw = words if packed == "bt" else np.ascontiguousarray(words.T)
     return torch.from_numpy(raw).to(dev)
 
 
-@pytest.mark.parametrize("framebits,packed,front_pad,with_init", [
-    (192, False, 0, True), (768, "bt", 12, False), (1536, True, 0, True),
-    (3072, "bt", 0, True), (3072, False, 6, False), (9216, "bt", 0, False),
-    (64, False, 0, True), (64, "bt", 0, False), (32, "bt", 0, True),
-    (32, False, 0, False)])
+def _hold_regs(dev, framebits, packed, front_pad, with_init, batch=B,
+               ckpt=None):
+    """Kernel A against its plain version on one shape, bit for bit."""
+    rng = np.random.default_rng(framebits + front_pad + batch)
+    syms = _symbols(rng, framebits, packed, dev, batch)
+    init = (torch.from_numpy(rng.integers(0, 256, (batch, 64))
+                             .astype(np.int32)).to(dev)
+            if with_init else None)
+    kw = dict(initial_metrics=init, packed=packed, front_pad=front_pad,
+              ckpt=ckpt)
+    r_p, m_p = acs_cuda.forward_regs_plain(syms, framebits + 6, **kw)
+    # the form the batch selects, then each form by name
+    for lanes in FORMS:
+        before = acs_cuda.forward_regs.launches
+        r_k, m_k = acs_cuda.forward_regs(syms, framebits + 6, lanes=lanes,
+                                         **kw)
+        assert acs_cuda.forward_regs.launches == before + 1
+        assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p), lanes
+
+
+@pytest.mark.parametrize("framebits,packed,front_pad,with_init", REGS_SHAPES)
 def test_acs_regs_kernel_matches_plain(cuda, framebits, packed, front_pad,
                                        with_init):
-    rng = np.random.default_rng(framebits + front_pad)
-    syms = _symbols(rng, framebits, packed, cuda)
-    init = (torch.from_numpy(rng.integers(0, 256, (B, 64))
-                             .astype(np.int32)).to(cuda)
-            if with_init else None)
-    kw = dict(initial_metrics=init, packed=packed, front_pad=front_pad)
-    before = acs_cuda.forward_regs.launches
-    r_k, m_k = acs_cuda.forward_regs(syms, framebits + 6, **kw)
-    assert acs_cuda.forward_regs.launches == before + 1
-    r_p, m_p = acs_cuda.forward_regs_plain(syms, framebits + 6, **kw)
-    assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p)
+    _hold_regs(cuda, framebits, packed, front_pad, with_init)
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+@pytest.mark.parametrize("framebits,packed,front_pad,with_init", REGS_SHAPES)
+def test_acs_regs_kernel_ragged_batch(cuda, framebits, packed, front_pad,
+                                      with_init, batch):
+    _hold_regs(cuda, framebits, packed, front_pad, with_init, batch)
+
+
+@pytest.mark.parametrize("ckpt", [24, 14, 2])
+@pytest.mark.parametrize("front_pad", [2, 4, 8, 10, 14, 20])
+def test_acs_regs_kernel_reset_inside_a_window(cuda, front_pad, ckpt):
+    """The reset re-seeds each lane with the states it holds at phase 0,
+    so the six-step window it falls into must end at the reset."""
+    for packed in ("bt", False):
+        _hold_regs(cuda, 96, packed, front_pad, True, 33, ckpt)
+
+
+@pytest.mark.parametrize("ckpt", range(2, 28, 2))
+def test_acs_regs_kernel_every_checkpoint_period(cuda, ckpt):
+    _hold_regs(cuda, 90, "bt", 0, True, 65, ckpt)
 
 
 @pytest.mark.parametrize("anchored,interior", [(False, False), (True, False),
@@ -99,22 +140,33 @@ def test_wrap_last6_on_card_matches_cpu(cuda):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("framebits,packed,with_init", [
-    (192, False, True), (768, "bt", False), (1536, True, True),
-    (3072, "bt", True), (3072, False, False), (9216, True, False),
-    (64, "bt", True), (96, False, False), (2328, True, True)])
-def test_acs_words_kernel_matches_plain(cuda, framebits, packed, with_init):
-    rng = np.random.default_rng(framebits)
-    syms = _symbols(rng, framebits, packed, cuda)
-    init = (torch.from_numpy(rng.integers(0, 256, (B, 64))
-                             .astype(np.int32)).to(cuda)
+def _hold_words(dev, framebits, packed, with_init, batch=B):
+    """Kernel C against its plain version on one shape, bit for bit."""
+    rng = np.random.default_rng(framebits + batch)
+    syms = _symbols(rng, framebits, packed, dev, batch)
+    init = (torch.from_numpy(rng.integers(0, 256, (batch, 64))
+                             .astype(np.int32)).to(dev)
             if with_init else None)
-    before = acs_cuda.forward.launches
-    d_k, m_k = acs_cuda.forward(syms, framebits + 6, init, packed=packed)
-    assert acs_cuda.forward.launches == before + 1
     d_p, m_p = acs_cuda.forward_plain(syms, framebits + 6, init,
                                       packed=packed)
-    assert torch.equal(d_k, d_p) and torch.equal(m_k, m_p)
+    for lanes in FORMS:
+        before = acs_cuda.forward.launches
+        d_k, m_k = acs_cuda.forward(syms, framebits + 6, init, packed=packed,
+                                    lanes=lanes)
+        assert acs_cuda.forward.launches == before + 1
+        assert torch.equal(d_k, d_p) and torch.equal(m_k, m_p), lanes
+
+
+@pytest.mark.parametrize("framebits,packed,with_init", WORDS_SHAPES)
+def test_acs_words_kernel_matches_plain(cuda, framebits, packed, with_init):
+    _hold_words(cuda, framebits, packed, with_init)
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+@pytest.mark.parametrize("framebits,packed,with_init", WORDS_SHAPES)
+def test_acs_words_kernel_ragged_batch(cuda, framebits, packed, with_init,
+                                       batch):
+    _hold_words(cuda, framebits, packed, with_init, batch)
 
 
 @pytest.mark.parametrize("framebits", [24, 48, 768, 2328, 9216])
@@ -196,22 +248,25 @@ def test_punctured_frames_on_card_match_plain_only_call(cuda):
 @pytest.mark.parametrize("framebits,packed", [(3072, "bt"), (768, True),
                                               (64, "bt"), (32, "bt")])
 @pytest.mark.parametrize("name,ablate", kablate.VARIANTS)
+@pytest.mark.parametrize("batch", [B, 33])
 def test_ablation_kernel_matches_plain(cuda, name, ablate, framebits,
-                                       packed):
+                                       packed, batch):
     rng = np.random.default_rng(framebits)
-    syms = _symbols(rng, framebits, packed, cuda)
-    before = kablate.forward_regs_ablated.launches
-    r_k, m_k = kablate.forward_regs_ablated(syms, framebits + 6, ablate,
-                                            ckpt=24, packed=packed)
-    assert kablate.forward_regs_ablated.launches == before + 1
+    syms = _symbols(rng, framebits, packed, cuda, batch)
     r_p, m_p = kablate.forward_regs_ablated_plain(syms, framebits + 6,
                                                   ablate, ckpt=24,
                                                   packed=packed)
-    assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p)
-    if not ablate:      # nothing left out: kernel A itself, bit for bit
-        r_a, m_a = acs_cuda.forward_regs(syms, framebits + 6, ckpt=24,
-                                         packed=packed)
-        assert torch.equal(r_k, r_a) and torch.equal(m_k, m_a)
+    for lanes in FORMS:
+        before = kablate.forward_regs_ablated.launches
+        r_k, m_k = kablate.forward_regs_ablated(syms, framebits + 6, ablate,
+                                                ckpt=24, packed=packed,
+                                                lanes=lanes)
+        assert kablate.forward_regs_ablated.launches == before + 1
+        assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p), lanes
+        if not ablate:      # nothing left out: kernel A itself, bit for bit
+            r_a, m_a = acs_cuda.forward_regs(syms, framebits + 6, ckpt=24,
+                                             packed=packed, lanes=lanes)
+            assert torch.equal(r_k, r_a) and torch.equal(m_k, m_a), lanes
 
 
 @pytest.mark.parametrize("dtype,op", [(d, o) for d in kdtype.OP_DTYPES

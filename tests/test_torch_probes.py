@@ -259,3 +259,49 @@ def test_rsform_mix_plants_its_counts_and_the_forms_agree():
     assert torch.equal(c_t, c_b) and torch.equal(d_t, d_b)
     assert np.array_equal(c_t.numpy(), np.where(nerr > 5, -1, nerr))
     assert np.array_equal(d_t.numpy()[3:], clean[3:])
+
+
+_SASS = """
+	code for sm_90a
+		Function : _Z3fooPi
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   IMAD.MOV.U32 R2, RZ, RZ, RZ ;
+        /*0030*/                   VIADDMNMX R3, R0, R2, 0xff, PT ;
+        /*0040*/               @P0 BRA 0x70 ;
+        /*0050*/                   ISETP.GT.AND P0, PT, R3, R2, PT ;
+        /*0060*/              @!P0 BRA 0x50 ;
+        /*0070*/                   SEL R2, R3, R2, P0 ;
+        /*0080*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0090*/               @P1 BRA 0x30 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0;
+		Function : _Z3barPi
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_ksass_counts_the_longest_innermost_loop():
+    """The window loop of a kernel is the longest backward branch that
+    holds no other: the outer loop 0x30..0x90 holds 0x50..0x60."""
+    from viterbi_tpu_torch.probes import ksass
+    kernels = ksass.parse_sass(_SASS)
+    assert list(kernels) == ["_Z3fooPi", "_Z3barPi"]
+    assert [op for _, op, _ in kernels["_Z3fooPi"]][:4] \
+        == ["LDC", "S2R", "IMAD", "VIADDMNMX"]
+    table = ksass.summarize(kernels, steps=2)
+    foo = table["_Z3fooPi"]
+    assert foo["instructions"] == 12
+    assert foo["loop_instructions"] == 2 and foo["per_step"] == 1.0
+    assert foo["loop_opcodes"] == {"ISETP": 1, "BRA": 1}
+    assert table["_Z3barPi"] == {"instructions": 1}
+
+
+def test_kbatch_needs_a_card_and_sweeps_the_decode_batches():
+    from viterbi_tpu_torch.probes import kbatch
+    assert set((1, 64, 1024, 4096, 10240, 16384, 32768, 65536)) \
+        <= set(kbatch.BATCHES)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kbatch.sweep(acs_cuda)

@@ -10,8 +10,8 @@
 // viterbi_tpu_torch.ops.acs_cuda.forward_regs_plain with the same parts
 // left out.
 //
-// Same contract, layout (one frame per thread, packed symbols) and bound
-// as kernel A: instruction latency within one frame, not bytes. What a
+// Same contract, layouts (one lane a frame or kLanes, packed symbols)
+// and bound as kernel A: the integer instruction rate, not bytes. What a
 // variant saves of kernel A's time is what the part it leaves out costs.
 
 #include <cstdint>
@@ -21,13 +21,13 @@
 
 namespace {
 
-template <int kAbl>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int L, int kAbl>
+__global__ void __launch_bounds__(kMaxThreads, regs_min_blocks(L))
 kablate_kernel(const int32_t* __restrict__ sym, int64_t sb, int64_t st,
                const int32_t* __restrict__ init, int B, int total, int ckpt,
                int32_t* __restrict__ regs, int32_t* __restrict__ met) {
-  acs_regs_frame<false, kAbl>(sym, sb, st, init, B, total, 0, -1, ckpt, regs,
-                              met);
+  acs_regs_frame<L, false, kAbl>(sym, sb, st, init, B, total, 0, -1, ckpt,
+                                 regs, met);
 }
 
 constexpr int kBare = kNoReg | kNoRenorm | kNoSat | kNoBm;
@@ -38,23 +38,29 @@ extern "C" {
 
 // Packed symbols only: frame b's step-u word at sym + b*sb + u*st.
 // ablate: a mask of kNoReg (1), kNoRenorm (2), kNoSat (4), kNoBm (8);
-// the instantiated masks are 0, each single part, and all four.
+// the instantiated masks are 0, each single part, and all four, each
+// with one lane a frame and with kLanes.
 // init: [B, 64]; regs: [ceil(total/ckpt), 64, B]; met: [B, 64].
 int kablate_launch(const void* sym, long long sb, long long st, int ablate,
                    const void* init, int B, int total, int ckpt, void* regs,
-                   void* met, int threads, int device, void* stream) {
+                   void* met, int lanes, int threads, int device,
+                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + threads - 1) / threads);
+  if (!launch_ok(lanes, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* y = static_cast<const int32_t*>(sym);
   const int32_t* i = static_cast<const int32_t*>(init);
   int32_t* r = static_cast<int32_t*>(regs);
   int32_t* m = static_cast<int32_t*>(met);
-#define VT_ABLATE_CASE(mask)                                              \
-  case mask:                                                              \
-    kablate_kernel<mask><<<grid, threads, 0, s>>>(y, sb, st, i, B, total, \
-                                                  ckpt, r, m);            \
+#define VT_ABLATE_LAUNCH(L, mask)                                           \
+  kablate_kernel<L, mask><<<blocks_for<L>(B, threads), threads, 0, s>>>(    \
+      y, sb, st, i, B, total, ckpt, r, m)
+#define VT_ABLATE_CASE(mask)                                                \
+  case mask:                                                                \
+    if (lanes == 1) VT_ABLATE_LAUNCH(1, mask);                              \
+    else VT_ABLATE_LAUNCH(kLanes, mask);                                    \
     break;
   switch (ablate) {
     VT_ABLATE_CASE(0)
@@ -67,6 +73,7 @@ int kablate_launch(const void* sym, long long sb, long long st, int ablate,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VT_ABLATE_CASE
+#undef VT_ABLATE_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

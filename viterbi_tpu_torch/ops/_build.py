@@ -122,11 +122,11 @@ def build_log(root: str | None = None, library: Library = MAIN) -> str:
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.acs_regs_launch.argtypes = [P, L, L, I, P, I, I, I, I, I, P, P,
-                                    I, I, P]
+                                    I, I, I, P]
     lib.acs_regs_launch.restype = I
     lib.tb_walk_launch.argtypes = [P, P, P, I, I, I, I, P, I, I, P]
     lib.tb_walk_launch.restype = I
-    lib.acs_words_launch.argtypes = [P, L, L, I, P, I, I, P, P, I, I, P]
+    lib.acs_words_launch.argtypes = [P, L, L, I, P, I, I, P, P, I, I, I, P]
     lib.acs_words_launch.restype = I
     lib.tb_words_launch.argtypes = [P, I, I, P, I, I, P]
     lib.tb_words_launch.restype = I
@@ -136,7 +136,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_probes(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.kablate_launch.argtypes = [P, L, L, I, P, I, I, I, P, P, I, I, P]
+    lib.kablate_launch.argtypes = [P, L, L, I, P, I, I, I, P, P, I, I, I, P]
     lib.kablate_launch.restype = I
     lib.kdtype_op_launch.argtypes = [I, I, P, P, P, I, I, P]
     lib.kdtype_op_launch.restype = I

@@ -15,15 +15,40 @@ decision per bit. On a CUDA tensor ``forward_regs`` launches kernel A
 
 Layout for the H100. The TPU path tiled the batch and the trellis time
 into a grid and padded the front of the trellis so that the chunks came
-out even (``choose_layout``, ``_batch_tile``). Kernel A gives each frame
-one thread that walks the whole trellis, so there are no chunks to even
-out: ``decode`` runs the natural trellis with ``DECODE_CKPT`` = 24 and no
+out even (``choose_layout``, ``_batch_tile``). Kernels A and C walk a
+whole frame's trellis in one go, so there are no chunks to even out:
+``decode`` runs the natural trellis with ``DECODE_CKPT`` = 24 and no
 front pad, and the last checkpoint is partial when 24 does not divide
 the trellis length. That makes every byte-aligned frame size decodable.
-Checkpoints dominate the kernel's memory traffic (256 bytes per frame
-per checkpoint, against 4 bytes of symbols per step), so the period is
-the longest for which every output byte still lies inside one 32-bit
+Checkpoints dominate kernel A's memory traffic (256 bytes per frame per
+checkpoint, against 4 bytes of symbols per step), so the period is the
+longest for which every output byte still lies inside one 32-bit
 register (``traceback._regs_bytes``).
+
+What bounds both kernels is the integer instruction rate, not bytes: a
+scheduler of the card starts one integer instruction every other clock,
+so a kernel's time is its instruction count as long as the schedulers
+have warps. Each kernel therefore has two forms of the same device code,
+and the wrapper takes the one that is faster at the batch it is given
+(``REGS_ONE_LANE_FRAMES``, ``WORDS_ONE_LANE_FRAMES``). One lane a frame
+keeps all 64 metrics (and, in kernel A, all 64 registers) in one thread
+and runs the fewest instructions a frame, but gives the card's 528
+schedulers one warp each only at 16384 frames: it is the form for the
+largest batches. ``LANES`` = 4 neighbouring lanes of a warp a frame, 16
+states each, put four times the warps on the schedulers and a quarter of
+the instructions in a thread, at 1.6 to 1.8 times the instructions a
+frame (every lane computes the branch metrics, and the states change
+lanes): the form for everything below, down to one frame. The lane of a
+state follows a schedule (``lane_of``, ``slot_of``, ``state_of``, the
+mirrors of the ``constexpr`` helpers in ``csrc/trellis.cuh``): at phase p
+the lane is named by the state's bits [p, p + log2 LANES), a step takes
+phase p to p + 1 without traffic between lanes, and after ``PHASES`` = 3
+steps one exchange through shared memory brings every state back to
+phase 0. A lane XORs the polarity of its own bits of the butterfly index
+into the symbols (``polarity_word``) and indexes the eight branch metrics
+by the rest. In both forms kernel A shifts its registers once a six-step
+window (``register_select``, ``register_shift_in``) instead of once a
+step.
 """
 
 from __future__ import annotations
@@ -39,11 +64,100 @@ from . import acs as acs_ops
 from . import traceback as tb
 
 DECODE_CKPT = 24   # checkpoint period of decode(); see the module docstring
-ACS_THREADS = 64   # frames per block of kernel A
-WORDS_THREADS = 64  # frames per block of kernel C
+LANES = 4          # lanes of a warp that share a frame: kLanes of trellis.cuh
+PHASES = 3         # steps between two exchanges: kPhases of trellis.cuh
+ACS_THREADS = 128  # threads per block of kernel A
+WORDS_THREADS = 128  # threads per block of kernel C
+#: Batches from which one lane a frame is the faster form of kernel A and
+#: of kernel C on an H100, set from the batch sweeps of both forms
+#: (``probes/kbatch.py``, PERF.md): four lanes a frame cost 1.6 to 1.8
+#: times the instructions a frame and win as long as one lane a frame
+#: leaves the schedulers short of warps. Kernel A: 2.60 against 2.87 ms at
+#: 24576 frames, 3.38 against 2.86 ms at 32768. Kernel C: 1.31 against
+#: 1.34 ms at 10240, 1.68 against 1.35 ms at 16384.
+REGS_ONE_LANE_FRAMES = 28672
+WORDS_ONE_LANE_FRAMES = 12288
 #: parts of kernel A's step that ``forward_regs_plain(ablate=)`` and the
 #: ablation probe's kernel can leave out
 ABLATIONS = frozenset({"noreg", "norenorm", "nosat", "nobm"})
+
+
+def lane_of(lanes: int, phase: int, state: int) -> int:
+    """The lane that holds ``state`` at ``phase``: its bits [phase,
+    phase + log2 lanes)."""
+    return (state >> phase) & (lanes - 1)
+
+
+def slot_of(lanes: int, phase: int, state: int) -> int:
+    """The slot (register index) of ``state`` in its lane at ``phase``:
+    the state with the lane's bits taken out."""
+    lb = lanes.bit_length() - 1
+    return (state & ((1 << phase) - 1)) | ((state >> (phase + lb)) << phase)
+
+
+def state_of(lanes: int, phase: int, lane: int, slot: int) -> int:
+    """The state in ``slot`` of ``lane`` at ``phase``."""
+    lb = lanes.bit_length() - 1
+    return (slot & ((1 << phase) - 1)) | (lane << phase) \
+        | ((slot >> phase) << (phase + lb))
+
+
+def pattern(b: int) -> int:
+    """Polarity pattern of butterfly ``b``: bit 2 <- g0 (== g3), bit 1 <-
+    g1, bit 0 <- g2; linear over the bits of ``b``."""
+    par = lambda x: bin(x).count("1") & 1
+    g = C.POLYS
+    return (par((b << 1) & g[0]) << 2) | (par((b << 1) & g[1]) << 1) \
+        | par((b << 1) & g[2])
+
+
+def polarity_word(b: int) -> int:
+    """The polarity of butterfly ``b`` over a step's packed symbols: byte
+    q is 255 where symbol q is complemented."""
+    q = pattern(b)
+    return (0xFF0000FF if q & 4 else 0) | (0x0000FF00 if q & 2 else 0) \
+        | (0x00FF0000 if q & 1 else 0)
+
+
+def eight_branch_metrics(words: torch.Tensor, flip: int = 0) -> torch.Tensor:
+    """The eight distinct branch metrics of a step, as the kernels compute
+    them: packed words [B] (int64 values in [0, 2^32)), XOR-ed with a
+    lane's polarity word ``flip`` -> int32[B, 8], entry q for the
+    butterflies of polarity pattern q."""
+    w = words.to(torch.int64) ^ flip
+    s = [(w >> (8 * q)) & 255 for q in range(4)]
+    avg = lambda x, y: (x + y + 1) >> 1
+    out = []
+    for q in range(8):
+        x0, x1, x2 = (255 if q & 4 else 0), (255 if q & 2 else 0), \
+            (255 if q & 1 else 0)
+        out.append(avg(avg(s[0] ^ x0, s[1] ^ x1),
+                       avg(s[2] ^ x2, s[3] ^ x0)) >> 2)
+    return torch.stack(out, dim=-1).to(torch.int32)
+
+
+def register_select(regs: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
+    """The register exchange of one step without its shift: new state
+    2b + u takes the register of b (decision 0) or b + 32 (decision 1).
+    regs int32[B, 64], dec bool[B, 64]."""
+    lo = regs[:, :32].repeat_interleave(2, dim=1)
+    hi = regs[:, 32:].repeat_interleave(2, dim=1)
+    return torch.where(dec, hi, lo)
+
+
+def register_step(regs: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
+    """One step of the survivor registers: select, shift left by one,
+    bring the state's input bit in."""
+    odd = torch.arange(C.NUM_STATES, dtype=torch.int32,
+                       device=regs.device) & 1
+    return (register_select(regs, dec) << 1) | odd
+
+
+def register_shift_in(regs: torch.Tensor, n: int) -> torch.Tensor:
+    """The deferred shift after ``n`` <= 6 select-only steps: the low n
+    bits of a survivor's register are the low n bits of its state."""
+    state = torch.arange(C.NUM_STATES, dtype=torch.int32, device=regs.device)
+    return (regs << n) | (state & ((1 << n) - 1))
 
 
 def pack_symbols(symbols: torch.Tensor, nsteps: int) -> torch.Tensor:
@@ -145,6 +259,16 @@ def unpack_symbols(symbols: torch.Tensor, nsteps: int,
     return s.reshape(words.shape[0], C.RATE * nsteps)
 
 
+def _lanes(B: int, one_lane_frames: int, lanes: int | None) -> int:
+    """Lanes a frame for a batch of ``B``: the caller's, or ``LANES`` below
+    ``one_lane_frames`` and 1 from there on."""
+    if lanes is None:
+        return 1 if B >= one_lane_frames else LANES
+    if lanes not in (1, LANES):
+        raise ValueError(f"lanes must be 1 or {LANES}, got {lanes}")
+    return lanes
+
+
 def _init_metrics(initial_metrics, B: int, device) -> torch.Tensor:
     if initial_metrics is None:
         return acs_ops.init_metrics(B, device)
@@ -162,8 +286,8 @@ def forward_regs_plain(symbols: torch.Tensor, nsteps: int,
     """Plain version of kernel A, batch-vectorized over [B, 64].
 
     Same arguments and results as ``forward_regs``. Registers shift by
-    one input bit per step (the TPU kernels deferred a shift by 6 per
-    six-step window; the values at every checkpoint are the same).
+    one input bit per step (kernel A, like the TPU kernels, defers a shift
+    by 6 per six-step window; the values at every checkpoint are the same).
 
     ``ablate`` leaves parts of the step out, as the ablation probe's
     kernel does (``probes.kablate``): ``"noreg"`` (the registers keep
@@ -185,7 +309,6 @@ def forward_regs_plain(symbols: torch.Tensor, nsteps: int,
     words = words.to(torch.int32)
     init = _init_metrics(initial_metrics, B, dev)
     state_idx = torch.arange(C.NUM_STATES, dtype=torch.int32, device=dev)
-    odd = state_idx & 1
     shifts = torch.arange(0, 32, 8, dtype=torch.int32, device=dev)
     metrics, regs = init, state_idx.expand(B, -1)
     out = torch.empty((K, C.NUM_STATES, B), dtype=torch.int32, device=dev)
@@ -200,10 +323,7 @@ def forward_regs_plain(symbols: torch.Tensor, nsteps: int,
         metrics, dec = acs_ops.acs_step(metrics, bm,
                                         saturate="nosat" not in ablate)
         if "noreg" not in ablate:
-            # new state 2b+u comes from b (dec 0) or b+32 (dec 1), input u
-            lo = regs[:, :32].repeat_interleave(2, dim=1)
-            hi = regs[:, 32:].repeat_interleave(2, dim=1)
-            regs = (torch.where(dec, hi, lo) << 1) | odd
+            regs = register_step(regs, dec)
         if t % 2 == 1 and "norenorm" not in ablate:
             metrics = acs_ops.renormalize(metrics)
         if (t + 1) % ckpt == 0 or t + 1 == total:
@@ -214,7 +334,7 @@ def forward_regs_plain(symbols: torch.Tensor, nsteps: int,
 def forward_regs(symbols: torch.Tensor, nsteps: int,
                  initial_metrics: torch.Tensor | None = None,
                  ckpt: int | None = None, packed: bool | str = False,
-                 front_pad: int = 0):
+                 front_pad: int = 0, lanes: int | None = None):
     """Fused forward pass with path-register checkpoints.
 
     ``symbols``: [B, >=4*nsteps] int32 soft symbols — or one packed word
@@ -232,7 +352,9 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     32 survivor input bits as of step min((k+1)*ckpt, nsteps+front_pad).
 
     Kernel A on a CUDA tensor, ``forward_regs_plain`` on a CPU tensor;
-    ``forward_regs.launches`` counts the kernel's launches.
+    ``forward_regs.launches`` counts the kernel's launches. ``lanes``
+    names the kernel's form, 1 or ``LANES`` lanes a frame; left out, the
+    batch decides (``REGS_ONE_LANE_FRAMES``). The results are the same.
     """
     if symbols.device.type == "cpu":
         return forward_regs_plain(symbols, nsteps, initial_metrics, ckpt,
@@ -244,6 +366,7 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     dev = symbols.device
     sym, sb, st, unpacked = _strided(symbols, packed)
     init = _init_metrics(initial_metrics, B, dev)
+    lanes = _lanes(B, REGS_ONE_LANE_FRAMES, lanes)
     regs = torch.empty((K, C.NUM_STATES, B), dtype=torch.int32, device=dev)
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
     if B == 0:
@@ -252,7 +375,7 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     err = lib.acs_regs_launch(
         sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, total,
         front_pad, reset_at, ckpt, regs.data_ptr(), metrics.data_ptr(),
-        ACS_THREADS, dev.index or 0,
+        lanes, ACS_THREADS, dev.index or 0,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, err, "acs_regs")
     forward_regs.launches += 1
@@ -276,7 +399,7 @@ def forward_plain(symbols: torch.Tensor, nsteps: int,
 
 def forward(symbols: torch.Tensor, nsteps: int,
             initial_metrics: torch.Tensor | None = None,
-            packed: bool | str = False):
+            packed: bool | str = False, lanes: int | None = None):
     """The decisions forward pass, twin of ``acs_pallas.forward``.
 
     ``symbols`` in any ``forward_regs`` layout: unpacked [B, >=4*nsteps],
@@ -287,7 +410,9 @@ def forward(symbols: torch.Tensor, nsteps: int,
     state s, as int32 bit patterns.
 
     Kernel C on a CUDA tensor, ``forward_plain`` on a CPU tensor;
-    ``forward.launches`` counts the kernel's launches.
+    ``forward.launches`` counts the kernel's launches. ``lanes`` names the
+    kernel's form, 1 or ``LANES`` lanes a frame; left out, the batch
+    decides (``WORDS_ONE_LANE_FRAMES``). The results are the same.
     """
     if symbols.device.type == "cpu":
         return forward_plain(symbols, nsteps, initial_metrics, packed)
@@ -298,6 +423,7 @@ def forward(symbols: torch.Tensor, nsteps: int,
     dev = symbols.device
     sym, sb, st, unpacked = _strided(symbols, packed)
     init = _init_metrics(initial_metrics, B, dev)
+    lanes = _lanes(B, WORDS_ONE_LANE_FRAMES, lanes)
     dec = torch.empty((nsteps, B, 2), dtype=torch.int32, device=dev)
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
     if B == 0:
@@ -305,7 +431,8 @@ def forward(symbols: torch.Tensor, nsteps: int,
     lib = _build.load()
     err = lib.acs_words_launch(
         sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, nsteps,
-        dec.data_ptr(), metrics.data_ptr(), WORDS_THREADS, dev.index or 0,
+        dec.data_ptr(), metrics.data_ptr(), lanes, WORDS_THREADS,
+        dev.index or 0,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, err, "acs_words")
     forward.launches += 1

@@ -12,16 +12,22 @@ The TPU probe's switches and what stands for each here:
 * ``noreg``, ``norenorm``, ``nosat``, ``nobm``: the same parts of the
   step (register exchange, renormalization, saturation, branch metrics).
 * ``nomerge``, ``noreset``: the TPU's row interleave and 8x8 transposes
-  that put each new state back in its row. One frame per thread has
-  neither: the butterfly permutation is register renaming inside a
-  six-step unrolled block and costs no instruction. No switch.
+  that put each new state back in its row. With one lane a frame there
+  is neither: the butterfly permutation is register renaming inside the
+  unrolled steps and costs no instruction. With four lanes a frame the
+  exchange every three steps stands for them, and a step without it has
+  no defined result. No switch; the two forms' ``full`` rows tell what
+  the lanes cost and bring.
 * ``staticbit``: the TPU's choice between shifting every register each
-  step and placing the bit at a static position. Here the shift is one
-  of the three instructions of the exchange (select, shift, or) and goes
-  with ``noreg``. No switch of its own.
+  step and placing the bit at a static position. Here the shift comes
+  once a six-step window and goes with ``noreg``. No switch of its own.
+
+Every variant exists in both forms of kernel A (``lanes`` 1 or 4); the
+table is printed for the form kernel A takes at the probe's batch and,
+with ``--lanes``, for the other.
 
 Usage: python -m viterbi_tpu_torch.probes.kablate [--framebits N]
-       [--batch N] [--iters N]
+       [--batch N] [--iters N] [--lanes 1|4]
 """
 
 from __future__ import annotations
@@ -60,7 +66,8 @@ def forward_regs_ablated_plain(symbols: torch.Tensor, nsteps: int,
 
 def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
                          ckpt: int | None = None,
-                         packed: bool | str = "bt"):
+                         packed: bool | str = "bt",
+                         lanes: int | None = None):
     """Kernel A's forward pass with the parts named in ``ablate`` left out.
 
     ``symbols``: one packed word per step, frame-major [B, >=nsteps]
@@ -68,6 +75,8 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
     ``ablate``: one of the sets in ``VARIANTS``. Returns what
     ``forward_regs`` returns: (registers int32[ceil(nsteps/ckpt), 64, B],
     metrics int32[B, 64]); with ``noreg`` the registers hold their seeds.
+    ``lanes`` as for ``forward_regs``: left out, the form kernel A takes
+    at this batch.
 
     Kernel E on a CUDA tensor, the plain version on a CPU tensor;
     ``forward_regs_ablated.launches`` counts the kernel's launches.
@@ -87,6 +96,7 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
     dev = symbols.device
     sym, sb, st, _ = acs_cuda._strided(symbols, packed)
     init = acs_cuda._init_metrics(None, B, dev)
+    lanes = acs_cuda._lanes(B, acs_cuda.REGS_ONE_LANE_FRAMES, lanes)
     regs = torch.empty((K, C.NUM_STATES, B), dtype=torch.int32, device=dev)
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
     if B == 0:
@@ -95,7 +105,7 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
     err = lib.kablate_launch(
         sym.data_ptr(), sb, st, sum(_MASK[a] for a in ablate),
         init.data_ptr(), B, total, ckpt, regs.data_ptr(), metrics.data_ptr(),
-        ABLATE_THREADS, dev.index or 0, _build.stream_arg(dev))
+        lanes, ABLATE_THREADS, dev.index or 0, _build.stream_arg(dev))
     _build.check(lib, err, "kablate")
     forward_regs_ablated.launches += 1
     return regs, metrics
@@ -104,9 +114,10 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
 forward_regs_ablated.launches = 0
 
 
-def run(framebits: int = 3072, batch: int = 8192, iters: int = 30) -> dict:
+def run(framebits: int = 3072, batch: int = 8192, iters: int = 30,
+        lanes: int | None = None) -> dict:
     """Time every variant on the card; returns {name: ms} with kernel A
-    itself under ``"kernel A"``."""
+    itself, in the same form, under ``"kernel A"``."""
     dev = _common.require_card()
     nsteps = framebits + C.TAIL_BITS
     rng = np.random.default_rng(0)
@@ -115,11 +126,12 @@ def run(framebits: int = 3072, batch: int = 8192, iters: int = 30) -> dict:
         .to(dev)
     ck = acs_cuda.DECODE_CKPT
     times = {"kernel A": _common.device_ms(
-        lambda: acs_cuda.forward_regs(words, nsteps, ckpt=ck, packed="bt"),
-        iters)}
+        lambda: acs_cuda.forward_regs(words, nsteps, ckpt=ck, packed="bt",
+                                      lanes=lanes), iters)}
     for name, ablate in VARIANTS:
         times[name] = _common.device_ms(
-            lambda: forward_regs_ablated(words, nsteps, ablate, ck), iters)
+            lambda: forward_regs_ablated(words, nsteps, ablate, ck,
+                                         lanes=lanes), iters)
     return times
 
 
@@ -128,13 +140,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--framebits", type=int, default=3072)
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--lanes", type=int, choices=(1, acs_cuda.LANES),
+                    help="the kernel's form (default: kernel A's choice "
+                         "at this batch)")
     args = ap.parse_args(argv)
     _common.require_card()
-    times = run(args.framebits, args.batch, args.iters)
+    times = run(args.framebits, args.batch, args.iters, args.lanes)
+    lanes = acs_cuda._lanes(args.batch, acs_cuda.REGS_ONE_LANE_FRAMES,
+                            args.lanes)
     nsym = args.batch * C.RATE * (args.framebits + C.TAIL_BITS)
     print(f"kablate on {_common.card_line()}: B={args.batch} x framebits "
-          f"{args.framebits}, ckpt {acs_cuda.DECODE_CKPT}, "
-          f"{args.iters} launches each")
+          f"{args.framebits}, ckpt {acs_cuda.DECODE_CKPT}, {lanes} "
+          f"lane(s) a frame, {args.iters} launches each")
     full = times["full"]
     for name, ms in times.items():
         print(f"  {name:20s} {ms:8.3f} ms  {nsym / ms / 1e6:7.2f} Gsym/s  "
