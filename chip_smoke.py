@@ -15,7 +15,11 @@ Phases (each raises on failure, so the exit code is non-zero):
      over the frame sizes, layouts and anchors the decode paths can hand
      them; A and C in the form the batch selects and in each form by
      name, also at batches that leave the last warp ragged, with a reset
-     inside a six-step window and at every checkpoint period;
+     inside a six-step window and at every checkpoint period; B in every
+     form (1 to 32 segments a frame) on random registers, whose walks
+     never merge, and on kernel A's, with anchors, at 1 to 129
+     checkpoints, and its byte output against _regs_bytes of the plain
+     walk;
   4. main path: initialize() must pick the cuda_fused rung; decode
      B=16384 noisy frames of 3072 bits through
      deconvolve_batch(packed=True), bit-equal to the golden model and
@@ -24,9 +28,11 @@ Phases (each raises on failure, so the exit code is non-zero):
      must be launched;
   5. words path: with the override at 2, initialize() must pick the
      cuda_words rung; the same frames, unpacked and packed, bit-equal to
-     the cuda_fused output and to golden; framebits 64 through the
-     blocked fallback; kernels C and D must be launched; then the
-     torch_blocked rung on the same frames;
+     the cuda_fused output and to golden, the packed call timed (it
+     copies the packed words: phase 7 holds it under three times the
+     cuda_fused call); framebits 64 through the blocked fallback; kernels
+     C and D must be launched; then the torch_blocked rung on the same
+     frames;
   6. harness: viterbi_tpu_torch.harness.benchmark at /f 5000 /t 10 on
      all four rungs: every rung must decode 2637 bit errors in 595 bad
      frames, the Eb/N0 sweep 1321 / 55 / 11 errors equal to golden, and
@@ -34,8 +40,12 @@ Phases (each raises on failure, so the exit code is non-zero):
   7. times: both paths end to end; each kernel against its plain
      version on the main-path batch, timed and held bit for bit; the
      main path's output against a decode through plain versions only
-     (forward_plain, then tb_words_plain); and the batch sweep of
-     kernels A and C in both forms (probes.kbatch);
+     (forward_plain, then tb_words_plain); the batch sweep of kernels A
+     and C in both forms and, at four batches, of kernel B in every form
+     (probes.kbatch); kernel B's row is the walk with the bytes in the
+     same launch, as the main path runs it, and beside it stand the walk
+     alone and its loads as one independent gather, the card's floor for
+     them;
   8. superframe path: 2048 DAB+ audio superframes at 128 kbit/s (10240
      frames, 32768 RS codewords) through
      models.dab.decode_audio_superframes on the card: kernels A and B
@@ -57,7 +67,10 @@ Phases (each raises on failure, so the exit code is non-zero):
      depunctured symbols;
  11. replay: the committed corpus replays bit-exactly;
  12. probes: kernels E to H against their plain versions, bit for bit,
-     at the probes' own shapes, then each probe's table.
+     at the probes' own shapes (F also at lane counts around one thread's
+     16 bytes and on views that are not 16-byte aligned), the launch
+     path's five times (torch.add, the wrapper's launch, the bare C call,
+     and both inside a replayed CUDA graph), then each probe's table.
 The last line of output is {"ok": true, "device": {...}}; the line
 before it lists the eight kernels as JSON, each with its launches on its
 path, its time beside its plain version's, and its bound: the larger of
@@ -101,6 +114,13 @@ E_BATCH = 8192          # the ablation probe's batch (framebits FB_MAIN)
 # batches that leave the last warp ragged, for the forms of kernels A and
 # C whose lanes talk to each other
 RAGGED = (1, 3, 7, 9, 31, 33, 1000)
+# kernel B's forms: the batch's choice, then segments a frame by name
+WALK_FORMS = (None, 1, 2, 4, 8, 16, 32)
+# (checkpoints, ckpt, gap) of kernel B's checks on random registers: one
+# checkpoint, fewer than the segments, an odd count, the main path's 129
+WALK_SHAPES = ((1, 24, 6), (2, 14, 14), (5, 24, 24), (33, 14, 2),
+               (129, 24, 6))
+WALK_SWEEP = (1, 1024, 16384, 65536)    # batches of kernel B's sweep here
 
 # The card's peaks for the bounds: memory rate (data sheet), and issue
 # rates per SM and clock: 64 int32 lanes, 128 float32 lanes (an add or a
@@ -134,6 +154,7 @@ OPS_PER_STEP_C = 32 * 10 + 2 + STEP_COMMON_OPS
 OPS_PER_ROUND_G = 3     # two fused add-mins and a xor
 OPS_PER_ROUND_H = 2     # int: two fused add-mins a stream (float: 4 ops)
 OPS_PER_CKPT_B = 6      # address (3), shift, mask, anchor compare
+OPS_PER_BYTE_B = 5      # checkpoint of the byte (2), shift, mask, place
 OPS_PER_BIT_D = 9       # word select, 2 shifts + 2 masks, 2 to place, 2 state
 
 
@@ -258,6 +279,107 @@ def hold_forward(dev, rng, check, batch, fb, packed, pad=0, ckpt=None,
         check("acs_words", m_k, m_p, f"{what}, lanes={lanes} metrics")
 
 
+def hold_walk(dev, rng, check, regs, ckpt, gap, what) -> None:
+    """Kernel B in every form against its plain version on one set of
+    checkpoints: terminated, anchored, anchored at an interior
+    checkpoint."""
+    import torch
+    from viterbi_tpu_torch.ops import traceback as tb
+    K, _, batch = regs.shape
+    anc = torch.from_numpy(rng.integers(0, 64, batch).astype(np.int32)) \
+        .to(dev)
+    anck = torch.from_numpy(rng.integers(0, K, batch).astype(np.int32)) \
+        .to(dev)
+    for a, ak in ((None, None), (anc, None), (anc, anck)):
+        want = tb.tb_walk_plain(regs, ckpt, gap, a, ak)
+        for segments in WALK_FORMS:
+            check("tb_walk",
+                  tb.tb_walk(regs, ckpt, gap, a, ak, segments=segments),
+                  want, f"{what}, anchor={a is not None}, anchor_k="
+                        f"{ak is not None}, segments={segments}")
+
+
+def check_walk_forms(rng, dev, check) -> None:
+    """Phase 3, kernel B: every form on random registers (walks that never
+    merge, so every segment walks again until the serial order is
+    restored) and on kernel A's, at ragged batches; then the bytes."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    for batch in (*RAGGED, B_CHECK):
+        for K, ckpt, gap in WALK_SHAPES:
+            regs = torch.from_numpy(rng.integers(
+                -2**31, 2**31, (K, 64, batch), dtype=np.int64)
+                .astype(np.int32)).to(dev)
+            hold_walk(dev, rng, check, regs, ckpt, gap,
+                      f"random registers B={batch} K={K} ckpt={ckpt}")
+        # kernel A's checkpoints of noisy frames, and the bytes: with a
+        # front pad (offset), off the 24-step grid, and with no tail
+        for fb, pad, ckpt, tail in ((768, 0, 24, 6), (96, 12, None, 6),
+                                    (64, 0, None, 6), (768, 0, 24, 0)):
+            n = fb + tail
+            raw = rng.integers(0, 256, (batch, C.RATE * n), dtype=np.int32)
+            regs, _ = acs_cuda.forward_regs(
+                torch.from_numpy(raw).to(dev), n, ckpt=ckpt, front_pad=pad)
+            ck = ckpt or acs_cuda.choose_ckpt(n + pad)
+            K = regs.shape[0]
+            gap = n + pad - (K - 1) * ck
+            what = f"kernel A's registers B={batch} framebits {fb} " \
+                   f"front_pad={pad} ckpt={ck} tail={tail}"
+            hold_walk(dev, rng, check, regs, ck, gap, what)
+            want_rs = tb.tb_walk_plain(regs, ck, gap)
+            want = tb._regs_bytes(want_rs, fb, ck, gap, tail, pad)
+            for segments in WALK_FORMS:
+                rs, got = tb.tb_walk_bytes(regs, fb, ck, gap, tail, pad,
+                                           segments=segments)
+                check("tb_walk", rs, want_rs,
+                      f"{what}, bytes mode, segments={segments} windows")
+                check("tb_walk", got, want,
+                      f"{what}, bytes mode, segments={segments} bytes")
+
+
+def walk_times(tag, regs, rs, fused_ms, ck, gap) -> dict:
+    """Phase 7, beside kernel B's row on the main-path batch (the row is
+    the walk with the bytes in the same launch, as the main path runs it):
+    the walk alone, the walk followed by _regs_bytes, and the walk's own
+    loads as one independent gather (torch.take on the addresses the walk
+    visited: no chain, every load in flight at once), the card's floor for
+    them in kernel A's layout. Returns the row's extra keys, every one
+    measured here."""
+    import torch
+    from viterbi_tpu_torch.ops import traceback as tb
+    K, _, batch = regs.shape
+    segments, _ = tb.segment_layout(K, tb.walk_segments(batch))
+    walk_ms, _ = cuda_ms(lambda: tb.tb_walk(regs, ck, gap), 20)
+    apart_ms, _ = cuda_ms(
+        lambda: tb._regs_bytes(tb.tb_walk(regs, ck, gap), FB_MAIN, ck, gap),
+        20)
+    # the state in which the walk read checkpoint k: the anchor (0) at
+    # K-1, below that the bits above the window of the register read at
+    # k+1
+    state = torch.zeros_like(rs, dtype=torch.int64)
+    state[:-1] = (rs[1:].to(torch.int64) >> ck) & 63
+    state[-2] = (rs[-1].to(torch.int64) >> gap) & 63
+    k_idx = torch.arange(K, device=rs.device)[:, None]
+    b_idx = torch.arange(batch, device=rs.device)[None, :]
+    flat = (k_idx * 64 + state) * batch + b_idx
+    gather_ms, gathered = cuda_ms(lambda: torch.take(regs, flat), 20)
+    assert torch.equal(gathered, rs), "the walk's loads as one gather != rs"
+    # not a measurement and not the row's bound: what the 32-byte sectors
+    # of the loads and the 4-byte stores would take at the memory rate
+    sector_ms = 1e3 * K * batch * 36 / HBM_BYTES_S
+    print(f"{tag} tb_walk at B={batch} framebits={FB_MAIN}: {segments} "
+          f"segments a frame; with the bytes in the same launch "
+          f"{fused_ms:.4f} ms (the row), the walk alone {walk_ms:.4f} ms, "
+          f"the walk and _regs_bytes {apart_ms:.4f} ms; its {K * batch} "
+          f"loads as one independent gather (torch.take) {gather_ms:.4f} "
+          f"ms; their 32-byte sectors and the 4-byte stores at the memory "
+          f"rate would take {sector_ms:.4f} ms")
+    return {"segments": segments, "walk_ms": walk_ms,
+            "walk_then_bytes_ms": apart_ms, "gather_ms": gather_ms}
+
+
 def rung(name: str) -> None:
     """Select a rung through the config file; raises if it does not hold."""
     from viterbi_tpu_torch.harness import benchmark
@@ -323,8 +445,10 @@ def words_path(syms, packed, out, expect8) -> dict:
                     tb.tb_walk):
         counter.launches = 0
     ret_u, out_u = viterbi_tpu_torch.deconvolve_batch(FB_MAIN, syms)
+    t0 = time.perf_counter()
     ret_p, out_p = viterbi_tpu_torch.deconvolve_batch(FB_MAIN, packed,
                                                       packed=True)
+    packed_s = time.perf_counter() - t0
     ret_64, out_64 = viterbi_tpu_torch.deconvolve_batch(64, syms64)
     launches = {"acs_words": acs_cuda.forward.launches,
                 "tb_words": tb.tb_words.launches}
@@ -340,7 +464,9 @@ def words_path(syms, packed, out, expect8) -> dict:
     assert np.array_equal(out_64, golden.deconvolve_many(64, syms64)), \
         "cuda_words at framebits 64 (blocked fallback) != golden"
     print(f"words path: B={B_MAIN} x {FB_MAIN} unpacked and packed "
-          f"bit-equal to cuda_fused and golden; framebits 64 (blocked "
+          f"bit-equal to cuda_fused and golden (the packed call, its "
+          f"first: {packed_s * 1e3:.1f} ms for {packed.nbytes / 1e6:.0f} MB "
+          f"of words); framebits 64 (blocked "
           f"fallback) B={B_CHECK}: {channel.ber_fer(out_64, bits64)[2]} "
           f"bit errors, equal to golden")
     rung("torch_blocked")
@@ -397,8 +523,12 @@ def hold_path_kernels(flat, framebits, check, what) -> None:
         check("acs_regs", r_k, r_p, f"{what}, lanes={lanes} regs")
         check("acs_regs", m_k, m_p, f"{what}, lanes={lanes} metrics")
     gap = n - (r_k.shape[0] - 1) * ck
-    check("tb_walk", tb.tb_walk(r_k, ck, gap), tb.tb_walk_plain(r_k, ck, gap),
-          what + " windows")
+    want = tb.tb_walk_plain(r_k, ck, gap)
+    check("tb_walk", tb.tb_walk(r_k, ck, gap), want, what + " windows")
+    rs, got = tb.tb_walk_bytes(r_k, framebits, ck, gap)
+    check("tb_walk", rs, want, what + " windows, bytes mode")
+    check("tb_walk", got, tb._regs_bytes(want, framebits, ck, gap),
+          what + " bytes")
 
 
 def superframe_path(dev, tag, check) -> dict:
@@ -712,6 +842,27 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
             for _ in range(2))
         check("kdtype_op", kdtype.elementwise(op, dtype, x, y),
               kdtype.elementwise_plain(op, dtype, x, y), f"{dtype} {op}")
+        # around one thread's 16 bytes, with and without a tail, and on
+        # views that start one element past a 16-byte boundary
+        per = kdtype._PACKED[dtype][1] if dtype in kdtype._PACKED else 1
+        codes = kdtype._op_codes(op, dtype)
+        for count in kdtype.TAIL_COUNTS:
+            for skip in (0, 1):
+                x, y = (torch.from_numpy(rng.integers(
+                    lo, lo + (1 << bits), (count + skip) * per)
+                    .astype(np.int32)).to(dev) for _ in range(2))
+                a = kdtype._to_storage(x, dtype)[skip:]
+                b = kdtype._to_storage(y, dtype)[skip:]
+                out = torch.empty(count + skip, dtype=a.dtype,
+                                  device=dev)[skip:]
+                assert (a.data_ptr() % 16 != 0) == bool(skip)
+                kdtype._launch_op(codes, a, b, out)
+                check("kdtype_op",
+                      kdtype._from_storage(out, dtype, (count * per,)),
+                      kdtype.elementwise_plain(op, dtype, x[skip * per:],
+                                               y[skip * per:]),
+                      f"{dtype} {op}, {count} stored elements, "
+                      f"{'not ' if skip else ''}aligned")
     # the row: u8 add, beside the one PyTorch call that computes it
     x, y = (torch.from_numpy(rng.integers(0, 256, kdtype.OP_SHAPE)
                              .astype(np.int32)).to(dev) for _ in range(2))
@@ -720,20 +871,44 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
     codes = kdtype._op_codes("add", "u8")
     nlanes = x.numel()
     # ms: the launch alone on operands stored as u8, as the library call
-    # has them; wrapper_ms: with the wrapper's conversions from and to
-    # int32 lane values
+    # has them, launch to launch (what the host can enqueue); bare_ms: the
+    # bound C function with its arguments converted once; graph_ms and
+    # library_graph_ms: the device's own time a launch, inside a replayed
+    # CUDA graph of 1000; wrapper_ms: with the wrapper's conversions from
+    # and to int32 lane values
+    from viterbi_tpu_torch.ops import _build
+    from viterbi_tpu_torch.probes import _common
+    bare = _build.KDTYPE_OP.function()
+    bare_args = (*codes, a8.data_ptr(), b8.data_ptr(), out8.data_ptr(),
+                 nlanes, torch.cuda.current_stream(dev).cuda_stream)
+
+    def bare_launch():
+        assert bare(*bare_args) == 0
+
     rows["kdtype_op"] = dict(
-        ms=cuda_ms(lambda: kdtype._launch_op(codes, a8, b8, out8), 50)[0],
+        ms=cuda_ms(lambda: kdtype._launch_op(codes, a8, b8, out8), 2000)[0],
+        bare_ms=cuda_ms(bare_launch, 2000)[0],
+        graph_ms=_common.graph_ms(
+            lambda: kdtype._launch_op(codes, a8, b8, out8)),
         wrapper_ms=cuda_ms(
             lambda: kdtype.elementwise("add", "u8", x, y), 50)[0],
         plain_ms=cuda_ms(
             lambda: kdtype.elementwise_plain("add", "u8", x, y), 50)[0],
-        library_ms=cuda_ms(lambda: torch.add(a8, b8), 50)[0],
+        library_ms=cuda_ms(lambda: torch.add(a8, b8), 2000)[0],
+        library_graph_ms=_common.graph_ms(
+            lambda: torch.add(a8, b8, out=out8)),
         **bound(3 * nlanes, nlanes, clock_hz))
     check("kdtype_op", out8, torch.add(a8, b8), "u8 add on stored operands")
+    r = rows["kdtype_op"]
+    print(f"{tag} launch path, u8 add on {kdtype.OP_SHAPE}, ms a launch: "
+          f"torch.add {r['library_ms']:.5f}, kernel F through its wrapper's "
+          f"launch {r['ms']:.5f}, the bare C call {r['bare_ms']:.5f}, inside "
+          f"a replayed graph of 1000 kernel F {r['graph_ms']:.5f}, torch.add "
+          f"{r['library_graph_ms']:.5f}")
     print(f"kernel F vs plain: {len(kdtype.OP_DTYPES) * len(kdtype.OPS)} "
           f"narrow and {len(kdtype.PACKED_OPS)} packed ops on "
-          f"{kdtype.OP_SHAPE} bit-identical "
+          f"{kdtype.OP_SHAPE} and at {kdtype.TAIL_COUNTS} stored elements, "
+          f"aligned and not, bit-identical "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # --- G: every type at the probe's shape and rounds
@@ -937,6 +1112,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"kernels A, B vs plain: {len(cases)} shapes bit-identical, A in "
           f"every form ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    check_walk_forms(rng, dev, check)
+    torch.cuda.synchronize()
+    print(f"kernel B vs plain in every form {WALK_FORMS}: batches "
+          f"{(*RAGGED, B_CHECK)} x ({len(WALK_SHAPES)} shapes of random "
+          f"registers, 4 of kernel A's with the byte output), anchors and "
+          f"interior anchors bit-identical ({time.perf_counter() - t0:.1f} s)")
     # ragged last warps, a reset inside a six-step window (front pads that
     # six does not divide), every checkpoint period: A and C in every form
     t0 = time.perf_counter()
@@ -1043,6 +1225,7 @@ def main() -> int:
 
     # --- phase 7: times ----------------------------------------------------
     nsym = B_MAIN * C.RATE * (FB_MAIN + C.TAIL_BITS)
+    e2e_ms = {}
     for name in ("cuda_fused", "cuda_words"):
         rung(name)
         e2e = []
@@ -1053,9 +1236,16 @@ def main() -> int:
             e2e.append(time.perf_counter() - t0)
             assert r == 0
         e2e_s = statistics.median(e2e)
+        e2e_ms[name] = e2e_s * 1e3
         print(f"{tag} {name} deconvolve_batch(packed) B={B_MAIN} "
               f"framebits={FB_MAIN}: median {e2e_s * 1e3:.2f} ms end to "
               f"end over 5 calls, {nsym / e2e_s / 1e6:.1f} Msymbols/s")
+    # the packed words go to the card as they are on every rung: an
+    # unpack on the host took thirteen times the cuda_fused call
+    assert e2e_ms["cuda_words"] < 3 * e2e_ms["cuda_fused"], \
+        f"cuda_words packed {e2e_ms['cuda_words']:.1f} ms against " \
+        f"cuda_fused {e2e_ms['cuda_fused']:.1f} ms: not the copy of the " \
+        f"packed words"
 
     # each kernel against its plain version on the main-path batch: timed,
     # and the outputs of the untimed first runs held bit for bit
@@ -1080,8 +1270,17 @@ def main() -> int:
         lambda: acs_cuda.forward_regs_plain(dsyms, n, ckpt=ck, packed="bt"),
         1, ("regs", "metrics"))
     gap = n - (regs.shape[0] - 1) * ck
-    timed("tb_walk", lambda: (tb.tb_walk(regs, ck, gap),), 20,
-          lambda: (tb.tb_walk_plain(regs, ck, gap),), 3, ("windows",))
+
+    def walk_plain():
+        rs = tb.tb_walk_plain(regs, ck, gap)
+        return rs, tb._regs_bytes(rs, FB_MAIN, ck, gap)
+
+    # kernel B as the main path launches it: the walk with the bytes
+    (rs_k, _), _ = timed(
+        "tb_walk", lambda: tb.tb_walk_bytes(regs, FB_MAIN, ck, gap), 20,
+        walk_plain, 3, ("windows", "bytes"))
+    walk_extra = walk_times(tag, regs, rs_k, times["tb_walk"][0], ck, gap)
+    del rs_k
     (dec, _), (dec_p, _) = timed(
         "acs_words", lambda: acs_cuda.forward(dsyms, n, packed="bt"), 10,
         lambda: acs_cuda.forward_plain(dsyms, n, packed="bt"), 1,
@@ -1105,7 +1304,7 @@ def main() -> int:
     # form by name; the choice must stay near the faster form
     from viterbi_tpu_torch.probes import kbatch
     t0 = time.perf_counter()
-    table = kbatch.sweep(acs_cuda, FB_MAIN, iters=5)
+    table = kbatch.sweep(acs_cuda, FB_MAIN, iters=3)
     for batch, row in table["batch"].items():
         print(f"{tag} sweep B={batch} packed bt, ms: " + ", ".join(
             f"{k} {v:.3f}" for k, v in row.items()))
@@ -1120,7 +1319,22 @@ def main() -> int:
                   f"{row['C']:.3f}")
     print(f"{tag} SM clock while kernel A runs, MHz: {table['clock_mhz']} "
           f"(bounds use {clock_hz / 1e6:.0f})")
-    print(f"batch sweep: {time.perf_counter() - t0:.1f} s")
+    print(f"batch sweep of kernels A and C: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # (the whole of kernel B's sweep, nine batches at three frame sizes,
+    # old against new: probes/kbatch.py --what walk)
+    walk_table = kbatch.sweep_walk(acs_cuda, tb, C, framebits=(FB_MAIN,),
+                                   iters=10, batches=WALK_SWEEP)[FB_MAIN]
+    for batch, row in walk_table.items():
+        print(f"{tag} sweep B={batch} kernel B, ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()))
+        best = min(v for name, v in row.items() if "segment" in name)
+        assert row["B, graph"] < 1.3 * best + 0.002, \
+            f"kernel B at B={batch}: the batch's choice " \
+            f"{row['B, graph']:.4f} ms against {best:.4f} ms for the " \
+            f"fastest form"
+    print(f"batch sweep of kernel B: {time.perf_counter() - t0:.1f} s")
 
     # bounds of kernels A-D on the main-path batch: the bytes each must
     # move (B and D: what this run's walk reads) and its integer operations
@@ -1129,8 +1343,10 @@ def main() -> int:
     bounds = {
         "acs_regs": bound(B_MAIN * n * 4 + (K + 2) * state_bytes,
                           B_MAIN * n * OPS_PER_STEP_A, clock_hz),
-        "tb_walk": bound(2 * K * B_MAIN * 4, K * B_MAIN * OPS_PER_CKPT_B,
-                         clock_hz),
+        # the registers it reads, the windows and the bytes it writes
+        "tb_walk": bound(2 * K * B_MAIN * 4 + B_MAIN * FB_MAIN // 8,
+                         K * B_MAIN * OPS_PER_CKPT_B
+                         + B_MAIN * FB_MAIN // 8 * OPS_PER_BYTE_B, clock_hz),
         "acs_words": bound(B_MAIN * n * (4 + 8) + 2 * state_bytes,
                            B_MAIN * n * OPS_PER_STEP_C, clock_hz),
         "tb_words": bound(B_MAIN * n * 8 + B_MAIN * FB_MAIN // 24 * 4,
@@ -1184,6 +1400,8 @@ def main() -> int:
                        **bounds[name])
             if name in lanes_at_main:     # the form taken at this batch
                 row["lanes"] = lanes_at_main[name]
+            if name == "tb_walk":
+                row.update(walk_extra)
         row["max_abs_err"] = errs[name]
         assert row["launches"] > 0 and row["max_abs_err"] == 0, row
         kernels.append(row)

@@ -121,10 +121,101 @@ def test_tb_walk_kernel_matches_plain(cuda, anchored, interior):
 
 
 def test_tb_walk_rejects_out_of_range_anchor(cuda):
-    regs = torch.zeros((3, 64, 8), dtype=torch.int32, device=cuda)
-    anc = torch.full((8,), 64, dtype=torch.int32, device=cuda)
+    """The range check reads the caller's host tensor, so that no call
+    waits for the card; an anchor that lies on the card is masked to six
+    bits by the kernel, which never reads outside the checkpoints."""
+    rng = np.random.default_rng(4)
+    regs = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 64, 8))
+                            .astype(np.int32)).to(cuda)
+    anc = torch.full((8,), 64, dtype=torch.int32)
     with pytest.raises(ValueError, match="anchor"):
         tb.tb_walk(regs, 24, 14, anc)
+    with pytest.raises(ValueError, match="anchor"):
+        tb.tb_walk(regs, 24, 14, None, torch.full((8,), 3, dtype=torch.int32))
+    got = tb.tb_walk(regs, 24, 14, anc.to(cuda) + 5)
+    assert torch.equal(got, tb.tb_walk_plain(
+        regs, 24, 14, torch.full((8,), 5, dtype=torch.int32)))
+
+
+# kernel B's forms: the batch's choice, then segments a frame by name
+WALK_FORMS = (None, 1, 2, 4, 8, 16, 32)
+
+
+def _hold_walk(regs, ckpt, gap, anc, anck):
+    for a, ak in ((None, None), (anc, None), (anc, anck)):
+        want = tb.tb_walk_plain(regs, ckpt, gap, a, ak)
+        for segments in WALK_FORMS:
+            before = tb.tb_walk.launches
+            got = tb.tb_walk(regs, ckpt, gap, a, ak, segments=segments)
+            assert tb.tb_walk.launches == before + 1
+            assert torch.equal(got, want), segments
+
+
+@pytest.mark.parametrize("batch", [1, 31, 33, B, 1000])
+@pytest.mark.parametrize("K,ckpt,gap", [(1, 24, 6), (2, 14, 14), (7, 24, 24),
+                                        (8, 24, 1), (9, 14, 2), (129, 24, 6)])
+def test_tb_walk_kernel_forms_on_random_registers(cuda, K, ckpt, gap, batch):
+    """Walks over random registers never merge: every segment is walked
+    again until the serial order is restored."""
+    rng = np.random.default_rng(K + batch)
+    regs = torch.from_numpy(rng.integers(-2**31, 2**31, (K, 64, batch))
+                            .astype(np.int32)).to(cuda)
+    anc = torch.from_numpy(rng.integers(0, 64, batch).astype(np.int32))
+    anck = torch.from_numpy(rng.integers(0, K, batch).astype(np.int32))
+    _hold_walk(regs, ckpt, gap, anc.to(cuda), anck.to(cuda))
+    _hold_walk(regs, ckpt, gap, anc, anck)   # host anchors
+
+
+@pytest.mark.parametrize("batch", [1, 33, B])
+@pytest.mark.parametrize("framebits,pad,ckpt,tail", [
+    (3072, 0, 24, 6), (768, 0, 24, 0), (96, 12, None, 6), (64, 0, None, 6),
+    (192, 0, 14, 6), (32, 0, 24, 6)])
+def test_tb_walk_kernel_forms_and_bytes_on_kernel_a_registers(
+        cuda, framebits, pad, ckpt, tail, batch):
+    rng = np.random.default_rng(framebits + batch)
+    n = framebits + tail
+    raw = rng.integers(0, 256, (batch, 4 * n), dtype=np.int32)
+    regs, _ = acs_cuda.forward_regs(torch.from_numpy(raw).to(cuda), n,
+                                    ckpt=ckpt, front_pad=pad)
+    ck = ckpt or acs_cuda.choose_ckpt(n + pad)
+    K = regs.shape[0]
+    gap = n + pad - (K - 1) * ck
+    anc = torch.from_numpy(rng.integers(0, 64, batch).astype(np.int32))
+    anck = torch.from_numpy(rng.integers(0, K, batch).astype(np.int32))
+    _hold_walk(regs, ck, gap, anc.to(cuda), anck.to(cuda))
+    for a, ak in ((None, None), (anc.to(cuda), anck.to(cuda))):
+        want_rs = tb.tb_walk_plain(regs, ck, gap, a, ak)
+        want = tb._regs_bytes(want_rs, framebits, ck, gap, tail, pad)
+        for segments in WALK_FORMS:
+            before = tb.tb_walk.launches
+            rs, got = tb.tb_walk_bytes(regs, framebits, ck, gap, tail, pad,
+                                       a, ak, segments=segments)
+            assert tb.tb_walk.launches == before + 1
+            assert got.dtype == torch.uint8
+            assert torch.equal(rs, want_rs) and torch.equal(got, want), \
+                segments
+
+
+def test_kernels_launch_on_the_callers_stream_and_refused_launches_raise(
+        cuda):
+    from viterbi_tpu_torch.ops import _build
+    rng = np.random.default_rng(8)
+    regs = torch.from_numpy(rng.integers(-2**31, 2**31, (40, 64, 65))
+                            .astype(np.int32)).to(cuda)
+    want = tb.tb_walk_plain(regs, 24, 6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = tb.tb_walk(regs, 24, 6)
+    side.synchronize()
+    assert torch.equal(got, want)
+    a = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="kdtype_op launch failed"):
+        _build.KDTYPE_OP.launch(cuda, 9, 0, a.data_ptr(), a.data_ptr(),
+                                a.data_ptr(), 64)
+    with pytest.raises(RuntimeError, match="tb_walk launch failed"):
+        _build.TB_WALK.launch(cuda, regs.data_ptr(), None, None, 65, 40, 24,
+                              6, got.data_ptr(), None, 0, 0, 0, 33)
 
 
 def test_wrap_last6_on_card_matches_cpu(cuda):
@@ -284,6 +375,34 @@ def test_narrow_op_kernel_matches_plain(cuda, dtype, op):
     got = kdtype.elementwise(op, dtype, x, y)
     assert kdtype.elementwise.launches == before + 1
     assert torch.equal(got, kdtype.elementwise_plain(op, dtype, x, y))
+
+
+@pytest.mark.parametrize("dtype,op", [(d, o) for d in kdtype.OP_DTYPES
+                                      for o in kdtype.OPS]
+                         + list(kdtype.PACKED_OPS))
+def test_narrow_op_kernel_tails_and_alignment(cuda, dtype, op):
+    """Kernel F at lane counts around one thread's 16 bytes, with and
+    without a tail, on operands that start at a 16-byte boundary and one
+    element past it."""
+    lane = kdtype._lane_dtype(dtype)
+    bits = kdtype._BITS[lane]
+    lo = -(1 << (bits - 1)) if lane.startswith("i") else 0
+    per = kdtype._PACKED[dtype][1] if dtype in kdtype._PACKED else 1
+    codes = kdtype._op_codes(op, dtype)
+    rng = np.random.default_rng(bits + len(op))
+    for count in kdtype.TAIL_COUNTS:
+        for skip in (0, 1):
+            x, y = (torch.from_numpy(rng.integers(
+                lo, lo + (1 << bits), (count + skip) * per)
+                .astype(np.int32)).to(cuda) for _ in range(2))
+            a = kdtype._to_storage(x, dtype)[skip:]
+            b = kdtype._to_storage(y, dtype)[skip:]
+            out = torch.empty(count + skip, dtype=a.dtype,
+                              device=cuda)[skip:]
+            kdtype._launch_op(codes, a, b, out)
+            got = kdtype._from_storage(out, dtype, (count * per,))
+            assert torch.equal(got, kdtype.elementwise_plain(
+                op, dtype, x[skip * per:], y[skip * per:])), (count, skip)
 
 
 @pytest.mark.parametrize("dtype", kdtype.CHAIN_DTYPES)

@@ -10,6 +10,7 @@ import torch
 from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.ops import acs_cuda
+from viterbi_tpu_torch.ops import traceback as tb
 from viterbi_tpu_torch.probes import kablate, kdtype, kilp, rsform
 
 NP_TYPES = {"u8": np.uint8, "i8": np.int8, "u16": np.uint16, "i16": np.int16,
@@ -172,6 +173,79 @@ def test_elementwise_rejects_what_the_kernel_does_not_take():
         kdtype.elementwise("add", "u8", x, x[:3])
 
 
+# --- kernel F's word arithmetic ------------------------------------------------
+
+_UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+
+
+def _launch_model(op, dtype, a, b, aligned):
+    """Kernel F's launch in numpy on stored operands (the narrow numpy
+    type, or uint32 words of a packed type): the threads that take 16
+    bytes work on four 32-bit words each, narrow lanes unpacked, operated
+    on in their own type and re-packed; the rest take one element each."""
+    lane = NP_TYPES[kdtype._lane_dtype(dtype)]
+    nvec, tail = kdtype.vector_split(a.size, a.itemsize, aligned)
+    split = a.size - tail
+    assert split * a.itemsize == 16 * nvec
+    out = np.empty_like(a)
+
+    def words(wa, wb):
+        bits = 8 * np.dtype(lane).itemsize
+        unsigned = _UNSIGNED[bits // 8]
+        wo = np.zeros_like(wa)
+        for j in range(32 // bits):
+            x = (wa >> np.uint32(bits * j)).astype(unsigned).view(lane)
+            y = (wb >> np.uint32(bits * j)).astype(unsigned).view(lane)
+            r = _numpy_op(op, x, y).astype(lane).view(unsigned)
+            wo |= r.astype(np.uint32) << np.uint32(bits * j)
+        return wo
+
+    out[:split] = words(a[:split].view(np.uint32),
+                        b[:split].view(np.uint32)).view(a.dtype)
+    if dtype in kdtype._PACKED:
+        out[split:] = words(a[split:], b[split:])
+    else:
+        out[split:] = _numpy_op(op, a[split:], b[split:]).astype(a.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype,op", [(d, o) for d in kdtype.OP_DTYPES
+                                      for o in kdtype.OPS]
+                         + list(kdtype.PACKED_OPS))
+def test_word_arithmetic_model_matches_plain(dtype, op):
+    """16 bytes a thread, unpacked and re-packed in 32-bit words, gives the
+    plain version's lanes at every tail and alignment case."""
+    lane = kdtype._lane_dtype(dtype)
+    per = kdtype._PACKED[dtype][1] if dtype in kdtype._PACKED else 1
+    stored = np.uint32 if dtype in kdtype._PACKED else NP_TYPES[lane]
+    rng = np.random.default_rng(len(op) + 3 * len(dtype))
+    for count in kdtype.TAIL_COUNTS:
+        x, y = (_lanes(rng, lane, (count * per,)) for _ in range(2))
+        want = kdtype.elementwise_plain(op, dtype, torch.from_numpy(x),
+                                        torch.from_numpy(y))
+        a, b = (kdtype._to_storage(torch.from_numpy(v), dtype).numpy()
+                .view(stored) for v in (x, y))
+        assert a.size == count
+        for aligned in (True, False):
+            out = _launch_model(op, dtype, a, b, aligned)
+            got = kdtype._from_storage(
+                torch.from_numpy(out.view(a.dtype).view(
+                    kdtype._to_storage(torch.from_numpy(x), dtype)
+                    .numpy().dtype)), dtype, (count * per,))
+            assert torch.equal(got, want), (count, aligned)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_vector_split_counts_every_element_once(itemsize):
+    per = 16 // itemsize
+    for n in (*kdtype.TAIL_COUNTS, per - 1, per, per + 1, 0):
+        nvec, tail = kdtype.vector_split(n, itemsize, True)
+        assert nvec * per + tail == n and 0 <= tail < per
+        assert kdtype.vector_split(n, itemsize, False) == (0, n)
+    assert kdtype.vector_split(16399, 1, True) == (1024, 15)
+    assert {1, 15, 16, 17} <= set(kdtype.TAIL_COUNTS)
+
+
 # --- kernel G's plain version -------------------------------------------------
 
 @pytest.mark.parametrize("dtype", kdtype.CHAIN_DTYPES)
@@ -305,3 +379,26 @@ def test_kbatch_needs_a_card_and_sweeps_the_decode_batches():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             kbatch.sweep(acs_cuda)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kbatch.sweep_walk(acs_cuda, tb, C)
+
+
+def test_kbatch_walk_sweep_frames_are_random_encoded_frames():
+    """Kernel B's sweep needs survivors that sit in many states, as real
+    frames' do: its frames are random data through the harness's encoder
+    and channel, so they decode to what golden decodes and their walks
+    visit states other than 0."""
+    from viterbi_tpu_torch.probes import kbatch
+    assert set(kbatch.WALK_SEGMENTS) == {1, 4, 8, 16, 32}
+    assert 3072 in kbatch.WALK_FRAMEBITS
+    gen = torch.Generator().manual_seed(5)
+    words = kbatch.noisy_frames(torch, C, 6, 198, torch.device("cpu"), gen)
+    assert words.shape == (6, 198) and words.dtype == torch.int32
+    syms = acs_cuda.unpack_symbols(words, 198, "bt").numpy()
+    want = golden.deconvolve_many(192, syms)
+    got = acs_cuda.decode(words, 192, packed="bt").numpy()
+    assert np.array_equal(got, want)
+    assert len({bytes(row) for row in got}) == 6      # six different frames
+    regs, _ = acs_cuda.forward_regs(words, 198, ckpt=24, packed="bt")
+    rs = tb.tb_walk(regs, 24, 198 - 8 * 24)
+    assert len(set(((rs[1:-1] >> 24) & 63).flatten().tolist())) > 16

@@ -143,46 +143,48 @@ def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
                    packed: bool = False) -> torch.Tensor:
     """Decode symbols that already lie on the decode device through the
     named rung: [B, 4*(framebits+6)] symbols, or frame-major packed words
-    (``packed=True``, ``cuda_fused`` only). Returns uint8[B,
+    int32[B, framebits+6] (``packed=True``, framebits % 8 == 0: every
+    kernel and its plain version reads them in place). Returns uint8[B,
     ceil(framebits/8)] on that device."""
-    if variant == "cuda_fused" and framebits % 8 == 0:
-        # register-exchange ACS kernel + checkpoint-walk kernel
-        return acs_cuda.decode(syms, framebits,
-                               packed="bt" if packed else False)
-    if packed:
-        raise ValueError(f"{variant} reads unpacked symbols")
+    layout = "bt" if packed else False
     if framebits % 8:
+        if packed:
+            raise ValueError("off the byte grid the decode reads unpacked "
+                             "symbols")
         return _decode_arbitrary(syms, framebits)
+    if variant == "cuda_fused":
+        # register-exchange ACS kernel + checkpoint-walk kernel
+        return acs_cuda.decode(syms, framebits, packed=layout)
     st = dispatch.state()
     nsteps = framebits + C.TAIL_BITS
     block = _block(framebits, st.config.traceback_block)
-    if variant == "cuda_words":
-        # decisions kernel + decision-word walk kernel; the blocked
-        # traceback covers sizes off the 24-bit window grid
-        decisions, _ = acs_cuda.forward(syms, nsteps)
-        if framebits % tb.WORDS_WINDOW == 0:
-            return tb.chainback_words_cuda(decisions, framebits)
-        return tb.chainback_blocked(decisions, framebits, block=block)
-    # the torch_* rungs are traceback strategies: their forward pass is
-    # the decisions kernel wherever the kernels are built
-    if st.caps & dispatch.CAP_KERNELS:
-        decisions, _ = acs_cuda.forward(syms, nsteps)
+    # the torch_* rungs are traceback strategies: their forward pass is the
+    # decisions kernel wherever the kernels are built. On a CPU tensor
+    # acs_cuda.forward is its plain version, which takes the same layouts.
+    if variant == "cuda_words" or packed or st.caps & dispatch.CAP_KERNELS:
+        decisions, _ = acs_cuda.forward(syms, nsteps, packed=layout)
     else:
         decisions, _ = acs.forward(syms, nsteps)
-    if variant == "torch_blocked":
-        return tb.chainback_blocked(decisions, framebits, block=block)
-    return tb.chainback_scan(decisions, framebits)
+    if variant == "cuda_words" and framebits % tb.WORDS_WINDOW == 0:
+        # decision-word walk kernel; the blocked traceback covers sizes
+        # off the 24-bit window grid
+        return tb.chainback_words_cuda(decisions, framebits)
+    if variant == "torch_scan":
+        return tb.chainback_scan(decisions, framebits)
+    return tb.chainback_blocked(decisions, framebits, block=block)
 
 
 def _decode_batch(symbols: np.ndarray, framebits: int,
                   packed: bool = False) -> np.ndarray:
     """Dispatch a batch through the selected variant: [B, 4*(framebits+6)]
-    symbols, or packed int32[B, framebits+6] words. Returns
+    symbols, or packed int32[B, framebits+6] words, which go to the device
+    as they are wherever framebits % 8 == 0. Returns
     uint8[B, ceil(framebits/8)] packed bytes."""
     st = dispatch.state()
     variant = dispatch.VARIANTS[st.variant]
-    if packed and not (variant == "cuda_fused" and framebits % 8 == 0):
-        # the other rungs read unpacked symbols: a host byte view
+    if packed and framebits % 8:
+        # off the byte grid the plain decode reads unpacked symbols: a
+        # host byte view of the words
         symbols = np.ascontiguousarray(symbols, dtype=np.int32) \
             .view(np.uint8).reshape(symbols.shape[0], -1)
         packed = False
@@ -232,8 +234,9 @@ def deconvolve_batch(framebits: int, symbols_batch,
     layout instead (int32[B, >= framebits+6], symbol j in byte j —
     ``ops.acs_cuda.pack_symbols_host``): a byte reinterpret of the DAB
     symbol stream that ships 4x fewer bytes per call, the production
-    ingest path. The fused kernel reads it in place; the other rungs
-    unpack it with a host byte view.
+    ingest path. Where framebits % 8 == 0 the words go to the device as
+    they are and every rung's forward kernel reads them in place; off the
+    byte grid the plain decode reads a host byte view of them.
     """
     if symbols_batch is None:
         raise faults.CrashError("null symbol buffer")

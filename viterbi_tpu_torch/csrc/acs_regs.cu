@@ -103,9 +103,7 @@ extern "C" {
 int acs_regs_launch(const void* sym, long long sb, long long st,
                     int unpacked, const void* init, int B, int total,
                     int pad, int reset_at, int ckpt, void* regs, void* met,
-                    int lanes, int threads, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                    int lanes, int threads, void* stream) {
   if (!launch_ok(lanes, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

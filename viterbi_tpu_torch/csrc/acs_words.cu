@@ -220,10 +220,8 @@ extern "C" {
 // 32, at most kMaxThreads.
 int acs_words_launch(const void* sym, long long sb, long long st,
                      int unpacked, const void* init, int B, int nsteps,
-                     void* dec, void* met, int lanes, int threads, int device,
+                     void* dec, void* met, int lanes, int threads,
                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (!launch_ok(lanes, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

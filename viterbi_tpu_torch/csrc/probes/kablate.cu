@@ -43,10 +43,7 @@ extern "C" {
 // init: [B, 64]; regs: [ceil(total/ckpt), 64, B]; met: [B, 64].
 int kablate_launch(const void* sym, long long sb, long long st, int ablate,
                    const void* init, int B, int total, int ckpt, void* regs,
-                   void* met, int lanes, int threads, int device,
-                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                   void* met, int lanes, int threads, void* stream) {
   if (!launch_ok(lanes, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -18,11 +18,24 @@
 // The constants are kernel arguments and the adds are unsigned: with
 // compiled-in constants and signed adds, min(v, v + 1) folds to v.
 //
-// Both are bound by instruction issue and latency, not by bytes (F moves
-// 3 bytes per lane once; G reads and writes each lane once for thousands
-// of dependent operations). One lane (or one packed word) per thread.
+// G is bound by instruction rate and latency, not by bytes (it reads and
+// writes each lane once for thousands of dependent operations): one lane
+// (or one packed word) per thread. F moves 3 bytes per lane once, 48 KB at
+// the probe's shape, so what bounds it is the launch itself: the host's
+// path to the launch and the card's own time to start and drain a grid.
+// Its design keeps both short. A thread handles 16 bytes: one 128-bit load
+// an operand, the operation on four 32-bit words (narrow lanes unpacked
+// and re-packed in registers, each result cast back to its type, so the
+// wrap-around is the scalar code's), one 128-bit store; that is a
+// sixteenth of the memory instructions of one byte a thread and four
+// blocks instead of 64 at the probe's shape. Threads past the last whole
+// 16 bytes take one element each, and where a pointer is not 16-byte
+// aligned every element goes that way. Type and op are template
+// parameters; the launcher looks the kernel up in a table by the two
+// codes.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -78,20 +91,62 @@ __device__ __forceinline__ uint32_t apply_packed(uint32_t a, uint32_t b) {
   }
 }
 
+// One narrow type and op: an element, and a 32-bit word of 4 / sizeof(T)
+// lanes, lane j at bits [j * 8 * sizeof(T), ...), as they lie in memory.
 template <typename T, int kOp>
-__global__ void __launch_bounds__(kThreads)
-elementwise_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                   T* __restrict__ o, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) o[i] = apply<T, kOp>(x[i], y[i]);
-}
+struct NarrowFn {
+  using Elem = T;
+  static __device__ __forceinline__ T one(T a, T b) {
+    return apply<T, kOp>(a, b);
+  }
+  static __device__ __forceinline__ uint32_t word(uint32_t a, uint32_t b) {
+    using U = typename std::make_unsigned<T>::type;
+    constexpr int kBits = 8 * sizeof(T);
+    uint32_t r = 0;
+#pragma unroll
+    for (int j = 0; j < 32 / kBits; ++j) {
+      const T x = static_cast<T>(static_cast<U>(a >> (kBits * j)));
+      const T y = static_cast<T>(static_cast<U>(b >> (kBits * j)));
+      r |= static_cast<uint32_t>(static_cast<U>(one(x, y))) << (kBits * j);
+    }
+    return r;
+  }
+};
 
+// One packed op: the element is the 32-bit word itself.
 template <int kOp>
+struct PackedFn {
+  using Elem = uint32_t;
+  static __device__ __forceinline__ uint32_t one(uint32_t a, uint32_t b) {
+    return apply_packed<kOp>(a, b);
+  }
+  static __device__ __forceinline__ uint32_t word(uint32_t a, uint32_t b) {
+    return apply_packed<kOp>(a, b);
+  }
+};
+
+// Threads [0, nvec) take 16 bytes each, thread nvec + j takes element
+// nvec * (16 / sizeof(Elem)) + j.
+template <typename F>
 __global__ void __launch_bounds__(kThreads)
-packed_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-              uint32_t* __restrict__ o, int n) {
+op_kernel(const typename F::Elem* __restrict__ x,
+          const typename F::Elem* __restrict__ y,
+          typename F::Elem* __restrict__ o, int n, int nvec) {
+  constexpr int kPer = 16 / sizeof(typename F::Elem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) o[i] = apply_packed<kOp>(x[i], y[i]);
+  if (i < nvec) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(x) + i);
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(y) + i);
+    uint4 c;
+    c.x = F::word(a.x, b.x);
+    c.y = F::word(a.y, b.y);
+    c.z = F::word(a.z, b.z);
+    c.w = F::word(a.w, b.w);
+    reinterpret_cast<uint4*>(o)[i] = c;
+  } else {
+    const int e = nvec * kPer + (i - nvec);
+    if (e < n) o[e] = F::one(x[e], y[e]);
+  }
 }
 
 template <typename T>
@@ -128,55 +183,30 @@ chain_u8x4_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ o,
 
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
 
-template <typename T>
-cudaError_t launch_op(int op, const void* x, const void* y, void* o, int n,
-                      cudaStream_t s) {
-  const T* a = static_cast<const T*>(x);
-  const T* b = static_cast<const T*>(y);
-  T* c = static_cast<T*>(o);
-#define VT_OP_CASE(k)                                                    \
-  case k:                                                                \
-    elementwise_kernel<T, k><<<grid_for(n), kThreads, 0, s>>>(a, b, c, n); \
-    break;
-  switch (op) {
-    VT_OP_CASE(kAdd)
-    VT_OP_CASE(kMin)
-    VT_OP_CASE(kCmpSel)
-    VT_OP_CASE(kShift)
-    VT_OP_CASE(kXor)
-    VT_OP_CASE(kSub)
-    VT_OP_CASE(kCvtI32)
-    VT_OP_CASE(kCmpI32)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef VT_OP_CASE
-  return cudaGetLastError();
+// Kernel F's instantiations by (type code, op code); null where a type
+// has no such op.
+template <typename F>
+const void* op_entry() {
+  return reinterpret_cast<const void*>(&op_kernel<F>);
 }
 
-cudaError_t launch_packed(int op, const void* x, const void* y, void* o,
-                          int n, cudaStream_t s) {
-  const uint32_t* a = static_cast<const uint32_t*>(x);
-  const uint32_t* b = static_cast<const uint32_t*>(y);
-  uint32_t* c = static_cast<uint32_t*>(o);
-#define VT_PACKED_CASE(k)                                           \
-  case k:                                                           \
-    packed_kernel<k><<<grid_for(n), kThreads, 0, s>>>(a, b, c, n);  \
-    break;
-  switch (op) {
-    VT_PACKED_CASE(kVadd4)
-    VT_PACKED_CASE(kVaddus4)
-    VT_PACKED_CASE(kVminu4)
-    VT_PACKED_CASE(kVsub4)
-    VT_PACKED_CASE(kVcmpsel4)
-    VT_PACKED_CASE(kVadd2)
-    VT_PACKED_CASE(kVminu2)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef VT_PACKED_CASE
-  return cudaGetLastError();
-}
+#define VT_NARROW_ROW(T)                                                   \
+  {op_entry<NarrowFn<T, kAdd>>(), op_entry<NarrowFn<T, kMin>>(),           \
+   op_entry<NarrowFn<T, kCmpSel>>(), op_entry<NarrowFn<T, kShift>>(),      \
+   op_entry<NarrowFn<T, kXor>>(), op_entry<NarrowFn<T, kSub>>(),           \
+   op_entry<NarrowFn<T, kCvtI32>>(), op_entry<NarrowFn<T, kCmpI32>>()}
+constexpr int kNumOpTypes = 5;
+const void* const kOpTable[kNumOpTypes][kNumOps] = {
+    VT_NARROW_ROW(uint8_t), VT_NARROW_ROW(int8_t), VT_NARROW_ROW(uint16_t),
+    VT_NARROW_ROW(int16_t),
+    {op_entry<PackedFn<kVadd4>>(), op_entry<PackedFn<kVaddus4>>(),
+     op_entry<PackedFn<kVminu4>>(), op_entry<PackedFn<kVsub4>>(),
+     op_entry<PackedFn<kVcmpsel4>>(), op_entry<PackedFn<kVadd2>>(),
+     op_entry<PackedFn<kVminu2>>(), nullptr}};
+#undef VT_NARROW_ROW
+constexpr int kOpElemBytes[kNumOpTypes] = {1, 1, 2, 2, 4};
+static_assert(static_cast<int>(kNumPackedOps) <= static_cast<int>(kNumOps),
+              "the packed row fits the table");
 
 template <typename T>
 cudaError_t launch_chain(const void* x, void* o, int n, int rounds, int c,
@@ -191,29 +221,31 @@ cudaError_t launch_chain(const void* x, void* o, int n, int rounds, int c,
 extern "C" {
 
 // Kernel F. dtype: 0 u8, 1 i8, 2 u16, 3 i16 (n elements, op an Op), or
-// 4 packed (n 32-bit words, op a PackedOp). x, y, o: n elements each.
+// 4 packed (n 32-bit words, op a PackedOp). x, y, o: n elements each,
+// aligned to their element.
 int kdtype_op_launch(int dtype, int op, const void* x, const void* y,
-                     void* o, int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: err = launch_op<uint8_t>(op, x, y, o, n, s); break;
-    case 1: err = launch_op<int8_t>(op, x, y, o, n, s); break;
-    case 2: err = launch_op<uint16_t>(op, x, y, o, n, s); break;
-    case 3: err = launch_op<int16_t>(op, x, y, o, n, s); break;
-    case 4: err = launch_packed(op, x, y, o, n, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+                     void* o, int n, void* stream) {
+  if (dtype < 0 || dtype >= kNumOpTypes || op < 0 || op >= kNumOps || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = kOpTable[dtype][op];
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int per = 16 / kOpElemBytes[dtype];
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+        reinterpret_cast<uintptr_t>(o)) & 15u) == 0;
+  int nvec = aligned ? n / per : 0;
+  const int threads = nvec + (n - nvec * per);
+  void* args[] = {&x, &y, &o, &n, &nvec};
+  cudaLaunchKernel(kernel, grid_for(threads), dim3(kThreads), args, 0,
+                   static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel G. dtype: 0 i32, 1 i16, 2 u16, 3 u8 (n elements), or 4 u8x4
 // (n 32-bit words of four lanes). x, o: n elements each.
 int kdtype_chain_launch(int dtype, const void* x, void* o, int n, int rounds,
-                        int c, int cap, int one, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                        int c, int cap, int one, void* stream) {
+  cudaError_t err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: err = launch_chain<int32_t>(x, o, n, rounds, c, cap, one, s); break;

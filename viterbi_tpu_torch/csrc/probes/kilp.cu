@@ -93,9 +93,8 @@ extern "C" {
 
 // nstreams: 1, 2, 4 or 8; mode: 0 int, 1 float, 2 mixed. x, o: int32[n].
 int kilp_streams_launch(int nstreams, int mode, const void* x, void* o, int n,
-                        int rounds, int c, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                        int rounds, int c, void* stream) {
+  cudaError_t err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* a = static_cast<const int32_t*>(x);
   int32_t* b = static_cast<int32_t*>(o);

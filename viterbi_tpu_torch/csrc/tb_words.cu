@@ -64,9 +64,7 @@ extern "C" {
 // dec: [T, B, 2] decision words with T >= framebits + 6; rs:
 // [framebits / 24, B].
 int tb_words_launch(const void* dec, int B, int framebits, void* rs,
-                    int threads, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                    int threads, void* stream) {
   const dim3 grid((B + threads - 1) / threads);
   tb_words_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int2*>(dec), B, framebits,

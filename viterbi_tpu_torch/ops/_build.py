@@ -119,36 +119,34 @@ def build_log(root: str | None = None, library: Library = MAIN) -> str:
     return (out_dir / "build.log").read_text()
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.acs_regs_launch.argtypes = [P, L, L, I, P, I, I, I, I, I, P, P,
-                                    I, I, I, P]
-    lib.acs_regs_launch.restype = I
-    lib.tb_walk_launch.argtypes = [P, P, P, I, I, I, I, P, I, I, P]
-    lib.tb_walk_launch.restype = I
-    lib.acs_words_launch.argtypes = [P, L, L, I, P, I, I, P, P, I, I, I, P]
-    lib.acs_words_launch.restype = I
-    lib.tb_words_launch.argtypes = [P, I, I, P, I, I, P]
-    lib.tb_words_launch.restype = I
-    lib.vt_error_string.argtypes = [I]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# every entry point's arguments; each takes the stream as its last one
+_ARGTYPES = {
+    MAIN: {
+        "acs_regs_launch": [_P, _L, _L, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                            _I, _I, _P],
+        "tb_walk_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                           _I, _P],
+        "acs_words_launch": [_P, _L, _L, _I, _P, _I, _I, _P, _P, _I, _I, _P],
+        "tb_words_launch": [_P, _I, _I, _P, _I, _P],
+    },
+    PROBES: {
+        "kablate_launch": [_P, _L, _L, _I, _P, _I, _I, _I, _P, _P, _I, _I,
+                           _P],
+        "kdtype_op_launch": [_I, _I, _P, _P, _P, _I, _P],
+        "kdtype_chain_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
+        "kilp_streams_launch": [_I, _I, _P, _P, _I, _I, _I, _P],
+    },
+}
+
+
+def _bind(lib: ctypes.CDLL, library: Library = MAIN) -> None:
+    for symbol, argtypes in _ARGTYPES[library].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    lib.vt_error_string.argtypes = [_I]
     lib.vt_error_string.restype = ctypes.c_char_p
-
-
-def _bind_probes(lib: ctypes.CDLL) -> None:
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.kablate_launch.argtypes = [P, L, L, I, P, I, I, I, P, P, I, I, I, P]
-    lib.kablate_launch.restype = I
-    lib.kdtype_op_launch.argtypes = [I, I, P, P, P, I, I, P]
-    lib.kdtype_op_launch.restype = I
-    lib.kdtype_chain_launch.argtypes = [I, P, P, I, I, I, I, I, I, P]
-    lib.kdtype_chain_launch.restype = I
-    lib.kilp_streams_launch.argtypes = [I, I, P, P, I, I, I, I, P]
-    lib.kilp_streams_launch.restype = I
-    lib.vt_error_string.argtypes = [I]
-    lib.vt_error_string.restype = ctypes.c_char_p
-
-
-_BINDERS = {MAIN: _bind, PROBES: _bind_probes}
 
 
 def load(root: str | None = None, library: Library = MAIN) -> ctypes.CDLL:
@@ -156,17 +154,68 @@ def load(root: str | None = None, library: Library = MAIN) -> ctypes.CDLL:
     with _lock:
         if library not in _libs:
             lib = ctypes.CDLL(str(build(root, library)))
-            _BINDERS[library](lib)
+            _bind(lib, library)
             _libs[library] = lib
         return _libs[library]
-
-
-def stream_arg(device) -> ctypes.c_void_p:
-    """The caller's current CUDA stream on ``device`` as a C argument."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(lib: ctypes.CDLL, err: int, kernel: str) -> None:
     if err:
         msg = lib.vt_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} (cudaError {err})")
+
+
+# The caller's current stream and device as plain integers: what torch's
+# own Triton launcher reads. The public calls build a Stream object each.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) \
+    or torch.cuda.current_device
+
+
+class Kernel:
+    """One C entry point: the launch path that every wrapper shares.
+
+    The library is loaded (and built) and the function looked up at the
+    first launch; from then on a launch is one ctypes call. The function
+    launches on the caller's current stream of the tensors' device, which
+    is made the current device only where it is not, and returns
+    ``cudaGetLastError()``: a refused launch raises.
+    """
+
+    __slots__ = ("library", "symbol", "name", "_lib", "_fn")
+
+    def __init__(self, library: Library, symbol: str, name: str):
+        assert symbol in _ARGTYPES[library], symbol
+        self.library, self.symbol, self.name = library, symbol, name
+        self._lib = self._fn = None
+
+    def function(self):
+        """The bound C function (loads the library at first use)."""
+        if self._fn is None:
+            self._lib = load(library=self.library)
+            self._fn = getattr(self._lib, self.symbol)
+        return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device`` (a CUDA device with its index, as a
+        tensor's) with the C function's arguments but the stream."""
+        fn = self._fn or self.function()
+        index = device.index
+        if index == _current_device():
+            err = fn(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, _raw_stream(index))
+        if err:
+            check(self._lib, err, self.name)
+
+
+ACS_REGS = Kernel(MAIN, "acs_regs_launch", "acs_regs")
+TB_WALK = Kernel(MAIN, "tb_walk_launch", "tb_walk")
+ACS_WORDS = Kernel(MAIN, "acs_words_launch", "acs_words")
+TB_WORDS = Kernel(MAIN, "tb_words_launch", "tb_words")
+KABLATE = Kernel(PROBES, "kablate_launch", "kablate")
+KDTYPE_OP = Kernel(PROBES, "kdtype_op_launch", "kdtype_op")
+KDTYPE_CHAIN = Kernel(PROBES, "kdtype_chain_launch", "kdtype_chain")
+KILP_STREAMS = Kernel(PROBES, "kilp_streams_launch", "kilp_streams")

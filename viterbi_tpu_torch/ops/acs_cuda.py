@@ -53,8 +53,6 @@ step.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -371,13 +369,10 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
     if B == 0:
         return regs, metrics
-    lib = _build.load()
-    err = lib.acs_regs_launch(
-        sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, total,
+    _build.ACS_REGS.launch(
+        dev, sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, total,
         front_pad, reset_at, ckpt, regs.data_ptr(), metrics.data_ptr(),
-        lanes, ACS_THREADS, dev.index or 0,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(lib, err, "acs_regs")
+        lanes, ACS_THREADS)
     forward_regs.launches += 1
     return regs, metrics
 
@@ -428,13 +423,9 @@ def forward(symbols: torch.Tensor, nsteps: int,
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
     if B == 0:
         return dec, metrics
-    lib = _build.load()
-    err = lib.acs_words_launch(
-        sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, nsteps,
-        dec.data_ptr(), metrics.data_ptr(), lanes, WORDS_THREADS,
-        dev.index or 0,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(lib, err, "acs_words")
+    _build.ACS_WORDS.launch(
+        dev, sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, nsteps,
+        dec.data_ptr(), metrics.data_ptr(), lanes, WORDS_THREADS)
     forward.launches += 1
     return dec, metrics
 

@@ -16,7 +16,9 @@ The port of ``viterbi_tpu.ops.traceback``:
     survivor-register checkpoints (``ops.acs_cuda.forward_regs``): one
     step per checkpoint instead of one per bit. ``tb_walk`` runs it as
     kernel B (``csrc/tb_walk.cu``) on a CUDA tensor and as its plain
-    version ``tb_walk_plain`` on a CPU tensor.
+    version ``tb_walk_plain`` on a CPU tensor; ``tb_walk_bytes`` has the
+    kernel assemble the decoded bytes in the same launch. Kernel B walks
+    a frame in several segments at once (``segment_layout``).
 
 Decision words are int32[T, B, 2] bit patterns: bit s of word s//32 is
 the decision into state s (viterbi.h:89-92).
@@ -24,7 +26,7 @@ the decision into state s (viterbi.h:89-92).
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -32,7 +34,19 @@ import torch
 from .. import constants as C
 from . import _build
 
-TB_THREADS = 128   # frames per block of kernel B
+TB_MAX_SEGMENTS = 32   # lanes a frame of kernel B: kMaxSegments of tb_walk.cu
+#: Lanes a frame of kernel B by batch on an H100, set from the batch sweep
+#: (``probes/kbatch.py``, PERF.md): (frames from which the entry holds,
+#: segments), largest batch first. More segments shorten a frame's chain of
+#: dependent loads; every segment but the first costs a second walk of a
+#: step or two, and from about 49152 frames the serial walk alone keeps the
+#: card at its rate of random 32-byte reads (about 40 G loads/s). The
+#: thresholds were set at framebits 3072 (K = 129 checkpoints); the
+#: crossover also moves with K. Device times there, ms: 1 frame 0.0028
+#: (32 segments) against 0.0219 (serial); 4096 frames 0.0157 (16) against
+#: 0.0747; 16384 frames 0.0531 (4) against 0.0934; 65536 frames 0.2382 (4)
+#: against 0.2207 (serial).
+TB_SEGMENTS_BY_BATCH = ((49152, 1), (8192, 4), (2048, 16), (0, 32))
 WORDS_TB_THREADS = 128   # frames per block of kernel D
 WORDS_WINDOW = 24  # decoded bits per window of kernel D
 
@@ -121,13 +135,9 @@ def tb_words(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
                      device=decisions.device)
     if B == 0:
         return rs
-    lib = _build.load()
-    err = lib.tb_words_launch(
-        decisions.data_ptr(), B, framebits, rs.data_ptr(), WORDS_TB_THREADS,
-        decisions.device.index or 0,
-        ctypes.c_void_p(
-            torch.cuda.current_stream(decisions.device).cuda_stream))
-    _build.check(lib, err, "tb_words")
+    _build.TB_WORDS.launch(
+        decisions.device, decisions.data_ptr(), B, framebits, rs.data_ptr(),
+        WORDS_TB_THREADS)
     tb_words.launches += 1
     return rs
 
@@ -226,16 +236,31 @@ def tb_walk_plain(regs: torch.Tensor, ckpt: int, gap: int,
     return rs
 
 
-def tb_walk(regs: torch.Tensor, ckpt: int, gap: int,
-            anchor: torch.Tensor | None = None,
-            anchor_k: torch.Tensor | None = None) -> torch.Tensor:
-    """The checkpoint walk: kernel B on a CUDA tensor, ``tb_walk_plain``
-    on a CPU tensor. Same arguments and result as ``tb_walk_plain``;
-    ``tb_walk.launches`` counts the kernel's launches."""
-    if regs.device.type == "cpu":
-        return tb_walk_plain(regs, ckpt, gap, anchor, anchor_k)
-    if regs.device.type != "cuda":
-        raise ValueError(f"tb_walk: unsupported device {regs.device}")
+def segment_layout(K: int, segments: int) -> tuple[int, int]:
+    """(S, L): the lanes a frame that kernel B really uses for ``K``
+    checkpoints when asked for ``segments``, and the checkpoints a lane.
+    L = ceil(K / segments), and S = ceil(K / L) <= segments leaves no lane
+    without a checkpoint. Lane s walks checkpoints K-1 - s*L down to
+    max(K - (s+1)*L, 0)."""
+    if not 1 <= segments <= TB_MAX_SEGMENTS:
+        raise ValueError(f"segments must lie in [1, {TB_MAX_SEGMENTS}], "
+                         f"got {segments}")
+    L = -(-K // min(segments, K))
+    return -(-K // L), L
+
+
+def walk_segments(B: int, segments: int | None = None) -> int:
+    """Lanes a frame for a batch of ``B``: the caller's, or the entry of
+    ``TB_SEGMENTS_BY_BATCH``."""
+    if segments is not None:
+        return segments
+    return next(s for frames, s in TB_SEGMENTS_BY_BATCH if B >= frames)
+
+
+def _launch_walk(regs, ckpt, gap, anchor, anchor_k, segments,
+                 nbytes=None, offset=0, nsteps=0):
+    """Kernel B on CUDA checkpoints: (rs int32[K, B], bytes uint8[B,
+    nbytes] or None where ``nbytes`` is)."""
     if regs.dtype != torch.int32 or regs.dim() != 3 \
             or regs.shape[1] != C.NUM_STATES:
         raise ValueError(f"tb_walk: regs must be int32[K, 64, B], got "
@@ -246,33 +271,78 @@ def tb_walk(regs: torch.Tensor, ckpt: int, gap: int,
     regs = regs.contiguous()
     K, _, B = regs.shape
     rs = torch.empty((K, B), dtype=torch.int32, device=regs.device)
+    out = None if nbytes is None else torch.empty(
+        (B, nbytes), dtype=torch.uint8, device=regs.device)
     if K == 0 or B == 0:
-        return rs
+        return rs, out
+    S, _ = segment_layout(K, walk_segments(B, segments))
 
-    def per_frame(x):
+    def per_frame(x, lo, hi, what):
         if x is None:
             return None
+        # a range check on the card would make the host wait for it, so it
+        # is made where the caller's tensor lies on the host; the kernel
+        # masks a state to six bits and never reads outside regs
+        if x.device.type == "cpu" and x.numel() \
+                and bool(((x < lo) | (x >= hi)).any()):
+            raise ValueError(f"tb_walk: {what} must lie in [{lo}, {hi})")
         x = x.to(device=regs.device, dtype=torch.int32).contiguous()
         if x.shape != (B,):
             raise ValueError(f"tb_walk: anchors must be [{B}], "
                              f"got {list(x.shape)}")
         return x
 
-    anc, anck = per_frame(anchor), per_frame(anchor_k)
-    if anc is not None and bool(((anc < 0) | (anc >= C.NUM_STATES)).any()):
-        raise ValueError("tb_walk: anchor states must lie in [0, 64)")
-    lib = _build.load()
-    err = lib.tb_walk_launch(
-        regs.data_ptr(), None if anc is None else anc.data_ptr(),
+    anc = per_frame(anchor, 0, C.NUM_STATES, "anchor states")
+    anck = per_frame(anchor_k, 0, K, "anchor checkpoints")
+    _build.TB_WALK.launch(
+        regs.device, regs.data_ptr(),
+        None if anc is None else anc.data_ptr(),
         None if anck is None else anck.data_ptr(), B, K, ckpt, gap,
-        rs.data_ptr(), TB_THREADS, regs.device.index or 0,
-        ctypes.c_void_p(torch.cuda.current_stream(regs.device).cuda_stream))
-    _build.check(lib, err, "tb_walk")
+        rs.data_ptr(), out.data_ptr() if nbytes else None, nbytes or 0,
+        offset, nsteps, S)
     tb_walk.launches += 1
-    return rs
+    return rs, out
+
+
+def tb_walk(regs: torch.Tensor, ckpt: int, gap: int,
+            anchor: torch.Tensor | None = None,
+            anchor_k: torch.Tensor | None = None,
+            segments: int | None = None) -> torch.Tensor:
+    """The checkpoint walk: kernel B on a CUDA tensor, ``tb_walk_plain``
+    on a CPU tensor. Same arguments and result as ``tb_walk_plain``;
+    ``tb_walk.launches`` counts the kernel's launches. ``segments`` names
+    the kernel's form, 1 (the serial walk) to ``TB_MAX_SEGMENTS`` lanes a
+    frame; left out, the batch decides (``TB_SEGMENTS_BY_BATCH``). The
+    result is the same in every form."""
+    if regs.device.type == "cpu":
+        return tb_walk_plain(regs, ckpt, gap, anchor, anchor_k)
+    if regs.device.type != "cuda":
+        raise ValueError(f"tb_walk: unsupported device {regs.device}")
+    return _launch_walk(regs, ckpt, gap, anchor, anchor_k, segments)[0]
 
 
 tb_walk.launches = 0
+
+
+def tb_walk_bytes(regs: torch.Tensor, framebits: int, ckpt: int, gap: int,
+                  tail: int = C.TAIL_BITS, offset: int = 0,
+                  anchor: torch.Tensor | None = None,
+                  anchor_k: torch.Tensor | None = None,
+                  segments: int | None = None):
+    """The checkpoint walk with the byte assembly: (rs, bytes) =
+    (``tb_walk(...)``, ``_regs_bytes(rs, framebits, ckpt, gap, tail,
+    offset)``), for ``ckpt`` <= 24. On a CUDA tensor one launch of kernel
+    B (counted in ``tb_walk.launches``) writes both; on a CPU tensor the
+    two plain versions run."""
+    if regs.device.type == "cpu":
+        rs = tb_walk_plain(regs, ckpt, gap, anchor, anchor_k)
+        return rs, _regs_bytes(rs, framebits, ckpt, gap, tail, offset)
+    if regs.device.type != "cuda":
+        raise ValueError(f"tb_walk: unsupported device {regs.device}")
+    nsteps = offset + framebits + tail
+    _byte_plan(framebits, ckpt, regs.shape[0], nsteps, offset)   # checks
+    return _launch_walk(regs, ckpt, gap, anchor, anchor_k, segments,
+                        framebits // 8, offset, nsteps)
 
 
 def _regs_bits(rs: torch.Tensor, framebits: int, ckpt: int,
@@ -293,6 +363,25 @@ def _regs_bits(rs: torch.Tensor, framebits: int, ckpt: int,
     return packbits_msb(allbits[:framebits].T)
 
 
+@functools.lru_cache(maxsize=64)
+def _byte_plan(framebits: int, ckpt: int, K: int, nsteps: int, offset: int):
+    """(k, p): output byte i is (rs[k[i]] >> p[i]) & 255; fixed by the
+    shape, so computed once a shape."""
+    if ckpt > 24:
+        raise ValueError(f"bytes come out of one register only for ckpt "
+                         f"<= 24, got {ckpt}")
+    i = np.arange(framebits // 8)
+    tend = offset + 8 * i + 7              # time of the byte's last bit
+    k = np.minimum(tend // ckpt, K - 1)
+    wend = np.where(k < K - 1, (k + 1) * ckpt - 1, nsteps - 1)
+    p = wend - tend                        # shift within register k
+    if not ((p >= 0).all() and (p + 7 <= 31).all()):
+        raise ValueError(f"a byte of framebits {framebits} (offset "
+                         f"{offset}, {nsteps} steps) lies outside its "
+                         f"register at ckpt {ckpt}, K {K}")
+    return k, p.astype(np.int32)
+
+
 def _regs_bytes(rs: torch.Tensor, framebits: int, ckpt: int, gap: int,
                 tail: int = C.TAIL_BITS, offset: int = 0) -> torch.Tensor:
     """Byte-granular assembly from survivor-register windows.
@@ -303,17 +392,10 @@ def _regs_bytes(rs: torch.Tensor, framebits: int, ckpt: int, gap: int,
     with (k_i, p_i) fixed by the shape. ``offset`` skips a front-padded
     region: data bit t of the frame lives at trellis step offset + t.
     """
-    assert ckpt <= 24
     K, B = rs.shape
-    nsteps = offset + framebits + tail
-    i = np.arange(framebits // 8)
-    tend = offset + 8 * i + 7              # time of the byte's last bit
-    k = np.minimum(tend // ckpt, K - 1)
-    wend = np.where(k < K - 1, (k + 1) * ckpt - 1, nsteps - 1)
-    p = wend - tend                        # shift within register k
-    assert (p >= 0).all() and (p + 7 <= 31).all()
+    k, p = _byte_plan(framebits, ckpt, K, offset + framebits + tail, offset)
     r = rs.index_select(0, torch.as_tensor(k, device=rs.device))
-    shifts = torch.as_tensor(p.astype(np.int32), device=rs.device)
+    shifts = torch.as_tensor(p, device=rs.device)
     return ((r >> shifts[:, None]) & 255).T.to(torch.uint8)
 
 
@@ -338,8 +420,10 @@ def chainback_regs_cuda(regs: torch.Tensor, framebits: int, ckpt: int = 24,
                         anchor_k: torch.Tensor | None = None,
                         wrap_last6: bool = False,
                         offset: int = 0) -> torch.Tensor:
-    """The checkpoint walk through ``tb_walk`` (kernel B on the card),
-    then byte assembly. Bit-exact vs ``chainback_regs``.
+    """The checkpoint walk and the byte assembly through
+    ``tb_walk_bytes`` (one launch of kernel B on the card; above ckpt 24
+    ``tb_walk``, then the bits in plain torch). Bit-exact vs
+    ``chainback_regs``.
 
     ``tail``/``anchor`` generalize to tail-biting: ``tail=0`` decodes a
     trellis of exactly ``framebits`` steps anchored at ``anchor``
@@ -358,12 +442,12 @@ def chainback_regs_cuda(regs: torch.Tensor, framebits: int, ckpt: int = 24,
     K = regs.shape[0]
     assert K == -(-nsteps // ckpt)
     gap = nsteps - (K - 1) * ckpt
-    rs = tb_walk(regs, ckpt, gap, anchor, anchor_k)
     if ckpt <= 24:
-        out = _regs_bytes(rs, framebits, ckpt, gap, tail=tail,
-                          offset=offset)
+        rs, out = tb_walk_bytes(regs, framebits, ckpt, gap, tail, offset,
+                                anchor, anchor_k)
     else:
         assert offset == 0
+        rs = tb_walk(regs, ckpt, gap, anchor, anchor_k)
         out = _regs_bits(rs, framebits, ckpt, gap)
     if wrap_last6:
         assert tail == 0 and framebits % 8 == 0

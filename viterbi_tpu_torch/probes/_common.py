@@ -40,6 +40,22 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches: int = 1000, replays: int = 5) -> float:
+    """Device time in ms of one run of ``fn`` inside a CUDA graph of
+    ``launches`` runs, replayed ``replays`` times: what the card takes for
+    a launch when the host's cost of issuing it is out of the way."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(launches):
+                fn()
+    torch.cuda.synchronize()
+    return device_ms(graph.replay, replays, warmup=1) / launches
+
+
 def count_launches(fn):
     """Device launches (kernels, copies, memsets) of one run of ``fn``,
     read from torch.profiler; None where the profiler sees no device."""

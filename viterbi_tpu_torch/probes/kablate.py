@@ -101,12 +101,10 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
     if B == 0:
         return regs, metrics
-    lib = _build.load(library=_build.PROBES)
-    err = lib.kablate_launch(
-        sym.data_ptr(), sb, st, sum(_MASK[a] for a in ablate),
+    _build.KABLATE.launch(
+        dev, sym.data_ptr(), sb, st, sum(_MASK[a] for a in ablate),
         init.data_ptr(), B, total, ckpt, regs.data_ptr(), metrics.data_ptr(),
-        lanes, ABLATE_THREADS, dev.index or 0, _build.stream_arg(dev))
-    _build.check(lib, err, "kablate")
+        lanes, ABLATE_THREADS)
     forward_regs_ablated.launches += 1
     return regs, metrics
 

@@ -111,24 +111,33 @@ def _op_codes(op: str, dtype: str) -> tuple[int, int]:
     return OP_DTYPES.index(dtype), OPS.index(op)
 
 
+#: kernel F's lane counts beside the probe's shape: under, at and over one
+#: thread's 16 bytes, and a large count with and without a tail
+TAIL_COUNTS = (1, 15, 16, 17, 16384, 16399)
+
+
+def vector_split(n: int, itemsize: int, aligned: bool) -> tuple[int, int]:
+    """(threads that take 16 bytes each, threads that take one element
+    each) for ``n`` stored elements of ``itemsize`` bytes, as kernel F's
+    launcher splits them: whole 16-byte groups where all three pointers
+    are 16-byte aligned, else every element by itself."""
+    nvec = n // (16 // itemsize) if aligned else 0
+    return nvec, n - nvec * (16 // itemsize)
+
+
 def _launch_op(codes, a, b, out) -> None:
-    """Kernel F on stored operands of one type, one launch."""
-    lib = _build.load(library=_build.PROBES)
-    err = lib.kdtype_op_launch(
-        *codes, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-        a.device.index or 0, _build.stream_arg(a.device))
-    _build.check(lib, err, "kdtype_op")
+    """Kernel F on stored operands of one type (contiguous, of one length;
+    views may start at any element), one launch."""
+    _build.KDTYPE_OP.launch(a.device, *codes, a.data_ptr(), b.data_ptr(),
+                            out.data_ptr(), a.numel())
     elementwise.launches += 1
 
 
 def _launch_chain(dtype: str, a, out, rounds: int) -> None:
     """Kernel G on stored lanes of one type, one launch."""
-    lib = _build.load(library=_build.PROBES)
-    err = lib.kdtype_chain_launch(
-        CHAIN_DTYPES.index(dtype), a.data_ptr(), out.data_ptr(), a.numel(),
-        rounds, CHAIN_C, CHAIN_CAP, CHAIN_ONE, a.device.index or 0,
-        _build.stream_arg(a.device))
-    _build.check(lib, err, "kdtype_chain")
+    _build.KDTYPE_CHAIN.launch(
+        a.device, CHAIN_DTYPES.index(dtype), a.data_ptr(), out.data_ptr(),
+        a.numel(), rounds, CHAIN_C, CHAIN_CAP, CHAIN_ONE)
     chain.launches += 1
 
 

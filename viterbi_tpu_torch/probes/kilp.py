@@ -84,12 +84,9 @@ def streams(x: torch.Tensor, nstreams: int, mode: str, rounds: int,
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel():
-        lib = _build.load(library=_build.PROBES)
-        err = lib.kilp_streams_launch(
-            nstreams, MODES.index(mode), x.data_ptr(), out.data_ptr(),
-            x.numel(), rounds, c, x.device.index or 0,
-            _build.stream_arg(x.device))
-        _build.check(lib, err, "kilp_streams")
+        _build.KILP_STREAMS.launch(
+            x.device, nstreams, MODES.index(mode), x.data_ptr(),
+            out.data_ptr(), x.numel(), rounds, c)
         streams.launches += 1
     return out
 
