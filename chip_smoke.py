@@ -70,10 +70,39 @@ Phases (each raises on failure, so the exit code is non-zero):
      at the probes' own shapes (F also at lane counts around one thread's
      16 bytes and on views that are not 16-byte aligned), the launch
      path's five times (torch.add, the wrapper's launch, the bare C call,
-     and both inside a replayed CUDA graph), then each probe's table.
+     and both inside a replayed CUDA graph), then each probe's table;
+ 13. tail-biting: 16384 tail-biting frames of 3072 bits at 3 dB through
+     ops.tailbiting.decode_tailbiting (kernels C, A and B must launch
+     once each), equal to the plain path on the card and to golden on 12
+     frames; kernels C, A and B against their plain versions on the
+     path's own inputs; a batch with forced end-metric ties (argmin takes
+     the lowest state on the card), the tie fixture, framebits 8, 32 and
+     9216;
+ 14. streaming: make_local_stream_decoder at the shapes of
+     STREAM_TPU.json (64 streams of 96 blocks of 3072 bits, 256 of 24)
+     and with a block whose overlap the layout rounds (480 bits): two
+     launches of kernel A and one of kernel B a call, equal to the plain
+     path on the card and on 4 streams to the whole-stream decode through
+     kernels A and B; kernel A against its plain version on the call's
+     inputs, kernel B in every form on the call's anchors, which lie
+     below the top checkpoint; Gsym/s beside cuda_fused's kernels;
+ 15. session: StreamSession on 64 streams of 3072-bit chunks (128
+     kbit/s), 40 pushes and a flush, then chunks of 5 frames: equal to
+     the one-shot decode through kernels A and B, three launches a push,
+     push time p50 under the 24 ms frame (and its max); kernels A and B
+     against their plain versions on the last push; the plain session on
+     the CPU equal on 2 streams;
+ 16. host ingest: libvitio.so built from native/vitio.cpp and equal to
+     its numpy fall-backs, a frame ring fed by 4 threads, and
+     utils.pipeline.decode_pipelined over 8 packed 16384 x 3072 batches
+     through acs_cuda.decode at depth 1 and 2, equal to one call at a
+     time, timed in turns with one pageable call at a time, eight runs
+     each: the median and the range.
+Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
 before it lists the eight kernels as JSON, each with its launches on its
-path, its time beside its plain version's, and its bound: the larger of
+path (A, B and C also by path, phases 13-16 included), its time beside
+its plain version's, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its integer operations (the
 shortest sequence that computes the step; an add feeding a min counts as
 one, as the card fuses them) over the card's issue rate.
@@ -81,6 +110,7 @@ one, as the card fuses them) over the card's issue rate.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -121,6 +151,22 @@ WALK_FORMS = (None, 1, 2, 4, 8, 16, 32)
 WALK_SHAPES = ((1, 24, 6), (2, 14, 14), (5, 24, 24), (33, 14, 2),
                (129, 24, 6))
 WALK_SWEEP = (1, 1024, 16384, 65536)    # batches of kernel B's sweep here
+TB_FRAMES = 16384       # tail-biting frames of FB_MAIN bits (phase 13)
+TB_WRAP = 96            # their warm-up steps
+TB_GOLDEN = 12          # of them held against the golden model
+# phase 14 (streams, blocks, block bits): the shapes of STREAM_TPU.json,
+# 6144 folded frames each, then a block whose overlap the layout rounds
+# (480 bits: checkpoint 18, overlap 132)
+STREAM_CELLS = ((64, 96, 3072), (256, 24, 3072), (256, 16, 480))
+STREAM_WHOLE = 4        # streams held against the whole-stream decode
+SESSION_STREAMS = 64    # phase 15: 128 kbit/s streams of FB_MAIN-bit chunks
+SESSION_PUSHES = 40
+SESSION_FRAMES = 5      # frames a chunk in the second run
+SESSION_PLAIN = (2, 4)  # streams and pushes of the plain session (CPU)
+FRAME_MS = 24.0         # a DAB logical frame: the push's budget
+RING_FRAMES = 8192      # phase 16: frames through the native ring
+INGEST_BATCHES = 8      # packed B_MAIN x FB_MAIN batches pipelined
+INGEST_ROUNDS = 4       # rounds of serial, 1, 2, 2, 1, serial in turns
 
 # The card's peaks for the bounds: memory rate (data sheet), and issue
 # rates per SM and clock: 64 int32 lanes, 128 float32 lanes (an add or a
@@ -987,6 +1033,498 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
     return rows
 
 
+# --- phases 13-16: beyond one frame ----------------------------------------
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """Record the calls of ``module.name`` made inside the block as
+    (arguments, keyword arguments, result); the function runs as before,
+    and a wrapper's launch count goes on counting."""
+    fn, calls = getattr(module, name), []
+
+    def rec(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    counts = hasattr(fn, "launches")
+    if counts:
+        rec.launches = fn.launches
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+        if counts:
+            fn.launches = rec.launches
+
+
+def parts_text(parts: dict) -> str:
+    """Device ms of a call's parts, each timed alone."""
+    return ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + " ms alone"
+
+
+def zero_launches() -> None:
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    for fn in (acs_cuda.forward_regs, acs_cuda.forward, tb.tb_walk):
+        fn.launches = 0
+
+
+def new_launches() -> dict:
+    """Launches of kernels A, C and B since ``zero_launches``."""
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    return {"acs_regs": acs_cuda.forward_regs.launches,
+            "acs_words": acs_cuda.forward.launches,
+            "tb_walk": tb.tb_walk.launches}
+
+
+def card_hard(bits, tailbiting: bool):
+    """Hard symbols made on the card from int bits [B, n]: terminated (n +
+    6 steps, a zero tail; ``channel.encode_batch``) or tail-biting (n
+    steps, the register preloaded with the last six bits;
+    ``golden.encode_tailbiting``). Returns uint8 [B, 4 * steps]."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.harness import channel
+    b = bits.to(torch.int32)
+    B, n = b.shape
+    if tailbiting:
+        ext, steps = torch.cat([b[:, -C.TAIL_BITS:], b], dim=1), n
+    else:
+        z = torch.zeros((B, C.TAIL_BITS), dtype=torch.int32, device=b.device)
+        ext, steps = torch.cat([z, b, z], dim=1), n + C.TAIL_BITS
+    sr = torch.zeros((B, steps), dtype=torch.int32, device=b.device)
+    for k in range(C.K):      # register bit k holds the bit k steps back
+        sr |= ext[:, C.TAIL_BITS - k: C.TAIL_BITS - k + steps] << k
+    parity = torch.as_tensor(channel._PARITY7, device=b.device)
+    return torch.stack([parity[(sr & p).long()] for p in C.POLYS],
+                       dim=2).reshape(B, C.RATE * steps)
+
+
+def card_symbols(bits, tailbiting: bool, gen):
+    """``card_hard``'s symbols through the harness channel's AWGN at
+    EBN0_DB, on the card: int32 [B, 4 * steps] soft symbols."""
+    import torch
+    from viterbi_tpu_torch.harness import channel
+    hard = card_hard(bits, tailbiting)
+    amp = channel.noise_amplitude(EBN0_DB)
+    soft = torch.randn(hard.shape, generator=gen, device=hard.device)
+    soft += torch.where(hard != 0, amp, -amp)
+    del hard
+    soft = (channel.OFFSET + channel.GAIN * soft).clamp_(0, channel.CLIP)
+    return soft.to(torch.int32)
+
+
+def bit_errors(out, bits) -> int:
+    """Decoded bytes on the card against the bits they should carry."""
+    import torch
+    from viterbi_tpu_torch.ops import traceback as tb
+    pop = torch.tensor([bin(i).count("1") for i in range(256)],
+                       device=out.device)
+    return int(pop[(out ^ tb.packbits_msb(bits)).long()].sum())
+
+
+def tailbiting_phase(dev, tag, check) -> dict:
+    """Phase 13: tail-biting frames through ops.tailbiting; returns the
+    kernels' launches on the main tail-biting call."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch import golden
+    from viterbi_tpu_torch.harness import channel
+    from viterbi_tpu_torch.ops import acs_cuda, tailbiting
+    from viterbi_tpu_torch.ops import traceback as tb
+    fb, wrap = FB_MAIN, TB_WRAP
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bits = torch.randint(0, 2, (TB_FRAMES, fb), generator=gen, device=dev)
+    syms = card_symbols(bits, True, gen)
+    two = bits[:2].cpu().numpy().astype(np.uint8)
+    hard = card_hard(bits[:2], True).cpu().numpy()
+    assert all(np.array_equal(hard[i], golden.encode_tailbiting(two[i]))
+               for i in range(2)), "the card's tail-biting encoder"
+    assert np.array_equal(card_hard(bits[:2], False).cpu().numpy(),
+                          channel.encode_batch(two)), "the card's encoder"
+    zero_launches()
+    out = tailbiting.decode_tailbiting(syms, fb, wrap)
+    torch.cuda.synchronize()
+    launches = new_launches()
+    print(f"tail-biting launches: {launches}")
+    assert launches == {"acs_regs": 1, "acs_words": 1, "tb_walk": 1}, \
+        launches
+    assert out.device == syms.device and out.shape == (TB_FRAMES, fb // 8)
+    nerr = bit_errors(out, bits)
+    assert nerr < TB_FRAMES * fb * 1e-3, f"{nerr} bit errors at 3 dB"
+    t0 = time.perf_counter()
+    plain = tailbiting.decode_tailbiting(syms, fb, wrap, use_kernels=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    assert torch.equal(out, plain), "tail-biting kernels != plain on the card"
+    host = syms[:TB_GOLDEN].cpu().numpy()
+    want = np.stack([golden.tailbiting_decode(fb, s, wrap) for s in host])
+    assert np.array_equal(out[:TB_GOLDEN].cpu().numpy(), want), \
+        "tail-biting != golden"
+    # each kernel against its plain version on the path's own inputs
+    zero = torch.zeros((TB_FRAMES, 64), dtype=torch.int32, device=dev)
+    warm = syms[:, 4 * (fb - wrap):]
+    d_k, m_k = acs_cuda.forward(warm, wrap, zero)
+    d_p, m_p = acs_cuda.forward_plain(warm, wrap, zero)
+    check("acs_words", d_k, d_p, "tail-biting warm-up decisions")
+    check("acs_words", m_k, m_p, "tail-biting warm-up metrics")
+    ckpt = acs_cuda.choose_ckpt(fb)
+    r_k, f_k = acs_cuda.forward_regs(syms, fb, m_k, ckpt=ckpt)
+    r_p, f_p = acs_cuda.forward_regs_plain(syms, fb, m_k, ckpt=ckpt)
+    check("acs_regs", r_k, r_p, "tail-biting pass registers")
+    check("acs_regs", f_k, f_p, "tail-biting pass metrics")
+    del r_p, d_k, d_p
+    anchor = torch.argmin(f_k, dim=1).to(torch.int32)
+    gap = fb - (r_k.shape[0] - 1) * ckpt
+    rs_k, bytes_k = tb.tb_walk_bytes(r_k, fb, ckpt, gap, tail=0,
+                                     anchor=anchor)
+    rs_p = tb.tb_walk_plain(r_k, ckpt, gap, anchor)
+    check("tb_walk", rs_k, rs_p, "tail-biting walk windows")
+    check("tb_walk", bytes_k, tb._regs_bytes(rs_p, fb, ckpt, gap, 0),
+          "tail-biting walk bytes")
+    parts = {"C": cuda_ms(lambda: acs_cuda.forward(warm, wrap, zero), 5)[0],
+             "A": cuda_ms(lambda: acs_cuda.forward_regs(
+                 syms, fb, m_k, ckpt=ckpt), 5)[0],
+             "B": cuda_ms(lambda: tb.tb_walk_bytes(
+                 r_k, fb, ckpt, gap, tail=0, anchor=anchor), 5)[0]}
+    del r_k
+    # forced end-metric ties: argmin takes the lowest state on the card
+    ties = 127 + torch.randint(0, 2, (B_CHECK, 4 * 768), generator=gen,
+                               device=dev, dtype=torch.int32)
+    _, m = acs_cuda.forward(ties[:, 4 * (768 - wrap):], wrap,
+                            torch.zeros_like(zero[:1]).expand(B_CHECK, -1))
+    _, m = acs_cuda.forward(ties, 768, m)
+    tied = int(((m == m.min(dim=1, keepdim=True).values).sum(dim=1) > 1)
+               .sum())
+    assert tied > B_CHECK // 4, f"only {tied} frames with tied end metrics"
+    assert np.array_equal(torch.argmin(m, dim=1).cpu().numpy(),
+                          np.argmin(m.cpu().numpy(), axis=1)), \
+        "argmin on the card does not take the lowest index on ties"
+    t_out = tailbiting.decode_tailbiting(ties, 768, wrap)
+    assert torch.equal(t_out, tailbiting.decode_tailbiting(
+        ties, 768, wrap, use_kernels=False)), "ties: kernels != plain"
+    host = ties[:4].cpu().numpy()
+    assert np.array_equal(t_out[:4].cpu().numpy(), np.stack(
+        [golden.tailbiting_decode(768, s, wrap) for s in host])), \
+        "ties != golden"
+    fx = np.load(ROOT / "tests" / "data" / "tb_tie_syms.npy")[None]
+    assert np.array_equal(
+        tailbiting.decode_tailbiting(fx, 768, 96).cpu().numpy()[0],
+        golden.tailbiting_decode(768, fx[0], 96)), "tie fixture != golden"
+    # the edges of the frame sizes
+    for sfb, swrap, batch in ((8, 8, B_CHECK), (32, 32, B_CHECK),
+                              (9216, 96, 64)):
+        sbits = torch.randint(0, 2, (batch, sfb), generator=gen, device=dev)
+        s = card_symbols(sbits, True, gen)
+        got = tailbiting.decode_tailbiting(s, sfb, swrap)
+        host = s[:2].cpu().numpy()
+        assert np.array_equal(got[:2].cpu().numpy(), np.stack(
+            [golden.tailbiting_decode(sfb, x, swrap) for x in host])), \
+            f"framebits {sfb} != golden"
+        if sfb < 100:
+            assert torch.equal(got, tailbiting.decode_tailbiting(
+                s, sfb, swrap, use_kernels=False)), f"framebits {sfb}"
+    k_ms, _ = cuda_ms(lambda: tailbiting.decode_tailbiting(syms, fb, wrap), 5)
+    nsym = TB_FRAMES * C.RATE * fb
+    print(f"{tag} tail-biting B={TB_FRAMES} framebits={fb} wrap {wrap} at "
+          f"{EBN0_DB} dB: {nerr} bit errors; kernels C + A + B {k_ms:.3f} "
+          f"ms resident ({nsym / k_ms / 1e6:.1f} Gsym/s; {parts_text(parts)}"
+          f"), the plain path "
+          f"on the card {plain_s:.2f} s, bit-equal; {TB_GOLDEN} frames, "
+          f"the tie fixture, {tied} frames with tied end metrics and "
+          f"framebits 8, 32, 9216 equal to golden")
+    return launches
+
+
+def streaming_phase(dev, tag, check, fused_gsym) -> dict:
+    """Phase 14: one-card block-overlap streaming at the shapes of
+    STREAM_TPU.json; returns the launches of the first cell's call."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    from viterbi_tpu_torch.parallel import streaming
+    first = None
+    for streams, n_blocks, blk in STREAM_CELLS:
+        sb = n_blocks * blk
+        gen = torch.Generator(device=dev).manual_seed(streams + n_blocks)
+        bits = torch.randint(0, 2, (streams, sb), generator=gen, device=dev)
+        syms = card_symbols(bits, False, gen)
+        data, tail = syms[:, :4 * sb], syms[:, 4 * sb:]
+        plan = streaming._plan_block_layout(blk, None, None, True)
+        dec = streaming.make_local_stream_decoder(sb, n_blocks)
+        zero_launches()
+        with recorded(acs_cuda, "forward_regs") as fwd, \
+                recorded(tb, "chainback_regs_cuda_anchored") as walk:
+            out = dec(data, tail)
+        torch.cuda.synchronize()
+        launches = new_launches()
+        assert launches == {"acs_regs": 2, "acs_words": 0, "tb_walk": 1}, \
+            launches
+        first = first or launches
+        assert out.shape == (streams, sb // 8)
+        plain = streaming.make_local_stream_decoder(
+            sb, n_blocks, use_kernels=False)(data, tail)
+        assert torch.equal(out, plain), "streaming kernels != plain"
+        del plain
+        whole = acs_cuda.decode(syms[:STREAM_WHOLE], sb)
+        assert torch.equal(out[:STREAM_WHOLE], whole), \
+            "streaming != the whole-stream decode through kernels A and B"
+        nerr = bit_errors(out, bits)
+        # kernels A and B against their plain versions on the call's own
+        # inputs; kernel B in every form, anchored below the top
+        for args, kw, (regs, metrics) in fwd:
+            r_p, m_p = acs_cuda.forward_regs_plain(*args, **kw)
+            check("acs_regs", regs, r_p, f"streaming {streams} x {sb}")
+            check("acs_regs", metrics, m_p, f"streaming {streams} x {sb}")
+        (regs, k, state, emit, ckpt), _, got = walk[0]
+        assert bool((k < regs.shape[0] - 1).any()), "no interior anchor"
+        want_rs = tb.tb_walk_plain(regs, ckpt, ckpt, state, k)
+        for segments in WALK_FORMS:
+            check("tb_walk", tb.tb_walk(regs, ckpt, ckpt, state, k,
+                                        segments=segments), want_rs,
+                  f"streaming walk {streams} x {sb}, segments={segments}")
+        check("tb_walk", got, tb._regs_bytes(
+            want_rs, emit, ckpt, ckpt, regs.shape[0] * ckpt - emit),
+            f"streaming walk bytes {streams} x {sb}")
+        (wa, wkw, _), (fa, fkw, _) = fwd
+        wargs = walk[0][0]
+        parts = {
+            "packing": cuda_ms(lambda: acs_cuda.pack_symbols(data, sb), 5)[0],
+            "A warm-up": cuda_ms(lambda: acs_cuda.forward_regs(*wa, **wkw),
+                                 5)[0],
+            "A full pass": cuda_ms(lambda: acs_cuda.forward_regs(*fa, **fkw),
+                                   5)[0],
+            "B": cuda_ms(lambda: tb.chainback_regs_cuda_anchored(*wargs),
+                         5)[0]}
+        del fwd, walk, regs, want_rs, wa, fa, wargs
+        ms, _ = cuda_ms(lambda: dec(data, tail), 5)
+        nsym = streams * C.RATE * sb
+        print(f"{tag} streaming {streams} streams x {sb} bits in "
+              f"{n_blocks} blocks of {blk} ({streams * n_blocks} folded "
+              f"frames; overlap, warm-up, ckpt {plan}): {ms:.3f} ms "
+              f"resident ({parts_text(parts)}), {nsym / ms / 1e6:.1f} "
+              f"Gsym/s ({fused_gsym:.1f} "
+              f"for cuda_fused's kernels at {B_MAIN} x {FB_MAIN}); "
+              f"{nerr} bit errors; equal to the plain path on the card "
+              f"and, on {STREAM_WHOLE} streams, to the whole-stream decode")
+        del syms, data, tail, out, whole
+    return first
+
+
+def session_phase(dev, tag, check) -> dict:
+    """Phase 15: StreamSession on 128 kbit/s streams; returns the
+    launches of one push."""
+    import torch
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    from viterbi_tpu_torch.parallel import StreamSession
+    B, chunk, n = SESSION_STREAMS, FB_MAIN, SESSION_PUSHES
+    sb = n * chunk
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bits = torch.randint(0, 2, (B, sb), generator=gen, device=dev)
+    dsyms = card_symbols(bits, False, gen)
+    whole = acs_cuda.decode(dsyms, sb).cpu().numpy()
+    syms = dsyms.to(torch.uint8).cpu().numpy()     # chunks arrive as bytes
+    data, tail = syms[:, :4 * sb], syms[:, 4 * sb:]
+    step = 4 * chunk
+
+    def run(sess, frames, chunks):
+        """Push chunks number ``chunks`` of ``frames`` frames each."""
+        outs, secs = [], []
+        for i in chunks:
+            t0 = time.perf_counter()
+            outs.append(sess.push(data[:, i * step * frames:
+                                       (i + 1) * step * frames]))
+            secs.append(time.perf_counter() - t0)
+        assert all(o.shape[1] > 0 for o in outs), "a push emitted nothing"
+        return outs, secs
+
+    def push_parts(fwd, walk):
+        """Device ms of a recorded push's three launches, each alone."""
+        (a, akw, _), (b, bkw, _) = fwd
+        wargs, wkw, _ = walk[0]
+        return {"A emit": cuda_ms(lambda: acs_cuda.forward_regs(*a, **akw),
+                                  5)[0],
+                "A look-ahead": cuda_ms(
+                    lambda: acs_cuda.forward_regs(*b, **bkw), 5)[0],
+                "B": cuda_ms(lambda: tb.tb_walk_bytes(*wargs, **wkw), 5)[0]}
+
+    sess = StreamSession(B)
+    assert sess.use_kernels and sess.device.type == dev.type
+    zero_launches()
+    outs, secs = run(sess, 1, range(n - 1))
+    launches = new_launches()
+    per_push = {k: v / (n - 1) for k, v in launches.items()}
+    assert per_push == {"acs_regs": 2, "acs_words": 0, "tb_walk": 1}, \
+        per_push
+    with recorded(acs_cuda, "forward_regs") as fwd, \
+            recorded(tb, "tb_walk_bytes") as walk:
+        outs += run(sess, 1, [n - 1])[0]
+    t0 = time.perf_counter()
+    outs.append(sess.flush(tail))
+    flush_s = time.perf_counter() - t0
+    got = np.concatenate(outs, axis=1)
+    assert np.array_equal(got, whole), "session != the one-shot decode"
+    # kernels A and B against their plain versions on the last push
+    for args, kw, (regs, metrics) in fwd:
+        r_p, m_p = acs_cuda.forward_regs_plain(*args, **kw)
+        check("acs_regs", regs, r_p, "session push")
+        check("acs_regs", metrics, m_p, "session push metrics")
+    (regs, fbits, ckpt, gap), kw, (rs, got_bytes) = walk[0]
+    want_rs = tb.tb_walk_plain(regs, ckpt, gap, kw.get("anchor"))
+    check("tb_walk", rs, want_rs, "session push walk")
+    check("tb_walk", got_bytes, tb._regs_bytes(want_rs, fbits, ckpt, gap,
+                                               kw["tail"]),
+          "session push bytes")
+    parts = push_parts(fwd, walk)
+    del fwd, walk, regs, want_rs, rs
+    ms = [1e3 * s for s in secs[1:]]
+    p50, worst = statistics.median(ms), max(ms)
+    assert p50 < FRAME_MS, f"push p50 {p50:.2f} ms over the {FRAME_MS} ms frame"
+    # chunks of five frames, the same stream
+    sess5, n5 = StreamSession(B), n // SESSION_FRAMES
+    outs5, secs5 = run(sess5, SESSION_FRAMES, range(n5 - 1))
+    with recorded(acs_cuda, "forward_regs") as fwd, \
+            recorded(tb, "tb_walk_bytes") as walk:
+        o, s = run(sess5, SESSION_FRAMES, [n5 - 1])
+    outs5, secs5 = outs5 + o, secs5 + s
+    parts5 = push_parts(fwd, walk)
+    del fwd, walk
+    outs5.append(sess5.flush(tail))
+    assert np.array_equal(np.concatenate(outs5, axis=1), whole), \
+        "session (five-frame chunks) != the one-shot decode"
+    # the plain session on the CPU against the kernel session, a few
+    # streams and pushes
+    ps, pn = SESSION_PLAIN
+    pdata = np.ascontiguousarray(data[:ps, :pn * step])
+    ptail = np.ascontiguousarray(tail[:ps])
+    sides = []
+    for sess_p in (StreamSession(ps, use_kernels=False, device="cpu"),
+                   StreamSession(ps)):
+        o = [sess_p.push(pdata[:, i:i + step])
+             for i in range(0, pdata.shape[1], step)]
+        o.append(sess_p.flush(ptail))
+        sides.append(np.concatenate(o, axis=1))
+    assert np.array_equal(sides[0], sides[1]), "session kernels != plain"
+    print(f"{tag} session {B} streams at {chunk * 1000 // 24000} kbit/s, "
+          f"{chunk}-bit chunks: {n} pushes, push {p50:.3f} ms p50, "
+          f"{worst:.3f} ms max (push {ms.index(worst) + 1}; the first "
+          f"{1e3 * secs[0]:.3f} ms) against "
+          f"{FRAME_MS} ms a frame (the last push's {parts_text(parts)}); "
+          f"flush {1e3 * flush_s:.3f} ms; "
+          f"{per_push} launches a push; equal to the one-shot decode "
+          f"through kernels A and B, and with chunks of {SESSION_FRAMES} "
+          f"frames (push {1e3 * statistics.median(secs5):.3f} ms p50, "
+          f"{1e3 * max(secs5[1:]):.3f} max; the last push's "
+          f"{parts_text(parts5)}); "
+          f"the plain session on the CPU equal on {ps} streams x {pn} "
+          f"pushes")
+    return {k: int(v) for k, v in per_push.items()}
+
+
+def ingest_phase(dev, tag, packed) -> dict:
+    """Phase 16: the native host library and the pipelined feed; returns
+    the launches of the pipelined run."""
+    import threading
+    import torch
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.utils import native, pipeline
+    assert native.have_native(), "libvitio.so did not build"
+    rng = np.random.default_rng(16)
+    bits = rng.integers(0, 2, FB_MAIN, dtype=np.uint8)
+    assert np.array_equal(native.encode(bits), native.encode_plain(bits))
+    assert np.array_equal(native.pack_bits(bits),
+                          native.pack_bits_plain(bits))
+    mask = rng.integers(0, 2, 32, dtype=np.uint8)
+    syms = rng.integers(0, 256, 4 * FB_MAIN, dtype=np.uint32)
+    assert np.array_equal(native.depuncture(syms, mask, 6 * FB_MAIN),
+                          native.depuncture_plain(syms, mask, 6 * FB_MAIN))
+    p = rng.integers(0, 256, 16 * 120, dtype=np.uint8)
+    assert np.array_equal(native.rs_deinterleave(p, 16),
+                          native.rs_deinterleave_plain(p, 16))
+    # a frame ring fed by four threads, drained in batches
+    frames = packed[:RING_FRAMES].view(np.uint32)
+    ring = native.FrameRing(capacity=1024, frame_len=frames.shape[1])
+    popped, failed = 0, []
+
+    def produce(first):
+        try:
+            for i in range(first, len(frames), 4):
+                assert ring.push(frames[i], tag=i), "ring closed"
+        except BaseException as e:     # reported below; the ring closes
+            failed.append(e)           # so that the consumer stops
+            ring.close()
+            raise
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=produce, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    while popped < len(frames):
+        got, tags = ring.pop_batch(256, min_batch=1)
+        if got.shape[0] == 0:
+            break
+        assert np.array_equal(got, frames[tags]), "ring frames != pushed"
+        popped += got.shape[0]
+    for t in threads:
+        t.join(timeout=60)
+    ring_s = time.perf_counter() - t0
+    ring.close()
+    assert not failed and not any(t.is_alive() for t in threads), failed
+    assert popped == len(frames), f"{popped} of {len(frames)} frames"
+    # decode_pipelined over packed batches against one call at a time
+    batches = [np.roll(packed, k * (B_MAIN // INGEST_BATCHES), axis=0)
+               for k in range(INGEST_BATCHES)]
+
+    def decode(t):
+        return acs_cuda.decode(t, FB_MAIN, packed="bt")
+
+    def serial_run():
+        return [decode(torch.from_numpy(b).to(dev)).cpu().numpy()
+                for b in batches]
+
+    serial = serial_run()
+    # pin the two staging buffers once, as a feed that runs on does
+    list(pipeline.decode_pipelined(batches[:2], decode, depth=2))
+    secs = {"serial": [], 1: [], 2: []}
+    for side in ("serial", 1, 2, 2, 1, "serial") * INGEST_ROUNDS:  # turns
+        zero_launches()
+        t0 = time.perf_counter()
+        got = serial_run() if side == "serial" else list(
+            pipeline.decode_pipelined(batches, decode, depth=side))
+        secs[side].append(1e3 * (time.perf_counter() - t0))
+        assert len(got) == len(serial) and all(
+            np.array_equal(g, s) for g, s in zip(got, serial)), \
+            f"{side} != one call at a time"
+        if side != "serial":
+            launches = new_launches()
+            assert launches == {"acs_regs": INGEST_BATCHES, "acs_words": 0,
+                                "tb_walk": INGEST_BATCHES}, launches
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    spread = {k: f"{med[k]:.1f} ({min(v):.1f}-{max(v):.1f})"
+              for k, v in secs.items()}
+    mb = packed.nbytes / 1e6
+    print(f"{tag} ingest: native host lib built ({native.library_path()}), "
+          f"equal to its numpy fall-backs; a frame ring fed by 4 threads "
+          f"moved {len(frames)} frames of {frames.shape[1]} words in "
+          f"{1e3 * ring_s:.1f} ms; {INGEST_BATCHES} packed batches of "
+          f"{B_MAIN} x {FB_MAIN} ({mb:.0f} MB each) through acs_cuda.decode, "
+          f"ms for all, median (range) of {len(secs[2])} runs each in "
+          f"turns: one pageable call at a time {spread['serial']}, "
+          f"pipelined depth 1 {spread[1]}, depth 2 {spread[2]} (medians: "
+          f"depth 2 {med[1] / med[2]:.2f}x depth 1, "
+          f"{med['serial'] / med[2]:.2f}x serial; host threads "
+          f"{torch.get_num_threads()}; every run "
+          f"{ {k: [round(x, 1) for x in v] for k, v in secs.items()} }), "
+          f"all equal")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1374,6 +1912,22 @@ def main() -> int:
     probe_rows = probes_phase(dev, tag, check, clock_hz)
     print(f"probes phase: {time.perf_counter() - t0:.1f} s")
 
+    # --- phases 13-16: tail-biting, streaming, sessions, host ingest ---------
+    fused_gsym = nsym / (times["acs_regs"][0] + times["tb_walk"][0]) / 1e6
+    paths = {"main": launches}
+    t_new = time.perf_counter()
+    for name, phase in (
+            ("tailbiting", lambda: tailbiting_phase(dev, tag, check)),
+            ("streaming", lambda: streaming_phase(dev, tag, check,
+                                                  fused_gsym)),
+            ("session", lambda: session_phase(dev, tag, check)),
+            ("ingest", lambda: ingest_phase(dev, tag, packed))):
+        t0 = time.perf_counter()
+        paths[name] = phase()
+        torch.cuda.synchronize()
+        print(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+    print(f"phases 13-16: {time.perf_counter() - t_new:.1f} s")
+
     csrc = "viterbi_tpu_torch/csrc/"
     meta = {
         "acs_regs": (csrc + "acs_regs.cu",
@@ -1402,6 +1956,10 @@ def main() -> int:
                 row["lanes"] = lanes_at_main[name]
             if name == "tb_walk":
                 row.update(walk_extra)
+            # the launches of each path's call (the session: a push)
+            row["launches_by_path"] = {
+                path: counts[name] for path, counts in paths.items()
+                if counts.get(name)}
         row["max_abs_err"] = errs[name]
         assert row["launches"] > 0 and row["max_abs_err"] == 0, row
         kernels.append(row)

@@ -207,3 +207,22 @@ def test_pack_symbols_matches_jax():
         acs_cuda.pack_symbols(torch.from_numpy(syms), 54).numpy(), want)
     assert np.array_equal(acs_cuda.pack_symbols_host(syms),
                           acs_pallas.pack_symbols_host(syms))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32,
+                                   torch.int64, torch.float32])
+@pytest.mark.parametrize("wider", [0, 12])
+def test_pack_symbols_takes_each_symbols_low_byte(dtype, wider):
+    """Every dtype and a row slice of a wider tensor (the byte view's
+    strides) against the word arithmetic, negative and large values
+    included where the dtype holds them."""
+    rng = np.random.default_rng(4)
+    lo, hi = {torch.uint8: (0, 256), torch.int16: (-300, 300),
+              torch.float32: (0, 256)}.get(dtype, (-70000, 70000))
+    syms = torch.from_numpy(rng.integers(lo, hi, (3, 4 * 54 + wider))) \
+        .to(dtype)
+    s = (syms[:, :4 * 54].to(torch.int32) & 0xFF).reshape(3, 54, 4)
+    want = s[..., 0] | (s[..., 1] << 8) | (s[..., 2] << 16) | (s[..., 3] << 24)
+    got = acs_cuda.pack_symbols(syms, 54)
+    assert got.shape == (54, 3) and got.dtype == torch.int32
+    assert torch.equal(got, want.T)

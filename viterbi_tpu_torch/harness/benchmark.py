@@ -32,6 +32,7 @@ from .. import api, golden
 from .. import constants as C
 from ..runtime import config as config_mod
 from ..runtime import dispatch
+from ..utils import native
 from . import channel
 
 GATE_FRAMEBITS = 3072        # framebits of the BER/FER gate and the sweep
@@ -191,6 +192,7 @@ def environment_report() -> str:
         f"variants supported: "
         f"{[dispatch.VARIANTS[i] for i in _supported_variants()]}",
         f"config: {st.config.path}",
+        f"native host lib: {native.have_native()}",
     ])
 
 

@@ -37,6 +37,7 @@ import torch
 
 from .. import constants as C
 from ..ops import acs, acs_cuda, rs as rs_ops, traceback
+from ..runtime.placement import on_device, want_kernels
 from . import puncture as P
 
 SUPERFRAME_FRAMES = 5  # logical frames per DAB+ audio superframe
@@ -70,26 +71,6 @@ class SubchannelConfig:
     @property
     def symbols_per_frame(self) -> int:
         return C.RATE * (self.framebits + C.TAIL_BITS)
-
-
-def _on_device(symbols, device) -> torch.Tensor:
-    """Symbols as an int32 tensor on the decode device: a tensor stays
-    where it is unless ``device`` says otherwise; a host array goes to the
-    card where there is one."""
-    if isinstance(symbols, torch.Tensor):
-        return symbols.to(device=device or symbols.device, dtype=torch.int32)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.from_numpy(np.ascontiguousarray(symbols, dtype=np.int32)) \
-        .to(device)
-
-
-def _use_kernels(use_kernels: bool | None, symbols: torch.Tensor) -> bool:
-    on_card = symbols.device.type == "cuda"
-    if use_kernels and not on_card:
-        raise ValueError("use_kernels=True needs symbols on a CUDA device, "
-                         f"got {symbols.device}")
-    return on_card if use_kernels is None else bool(use_kernels)
 
 
 def bytes_to_superframes(frame_bytes: torch.Tensor, cfg: SubchannelConfig):
@@ -145,11 +126,11 @@ def decode_audio_superframes(symbols, bitrate_kbps: int,
     RScheckSuperframe).
     """
     cfg = SubchannelConfig(bitrate_kbps)
-    syms = _on_device(symbols, device)
+    syms = on_device(symbols, device)
     B = syms.shape[0]
     flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
     frame_bytes = decode_frames(flat, cfg.framebits,
-                                _use_kernels(use_kernels, syms))
+                                want_kernels(use_kernels, syms.device))
     sf = bytes_to_superframes(
         frame_bytes.reshape(B, SUPERFRAME_FRAMES, cfg.frame_bytes), cfg)
     return rs_superframes(sf, cfg.rs_dims)
@@ -183,7 +164,7 @@ def _masked_decoder(segments: tuple):
     index: dict[torch.device, torch.Tensor] = {}
 
     def decode(received, use_kernels=None, device=None):
-        rec = _on_device(received, device)
+        rec = on_device(received, device)
         if rec.dim() != 2 or rec.shape[1] != kept.size:
             raise ValueError(f"received must be [B, {kept.size}], "
                              f"got {list(rec.shape)}")
@@ -191,8 +172,8 @@ def _masked_decoder(segments: tuple):
         if idx is None:
             idx = index[rec.device] = torch.from_numpy(kept).to(rec.device)
         full = depuncture_device(rec, mask, idx)
-        return decode_frames(full, framebits, _use_kernels(use_kernels, rec),
-                             scan=True)
+        return decode_frames(full, framebits,
+                             want_kernels(use_kernels, rec.device), scan=True)
 
     return decode
 

@@ -160,12 +160,10 @@ def register_shift_in(regs: torch.Tensor, n: int) -> torch.Tensor:
 
 def pack_symbols(symbols: torch.Tensor, nsteps: int) -> torch.Tensor:
     """[B, >=4*nsteps] soft symbols -> time-major packed [nsteps, B] int32:
-    one trellis step's four symbols in one word, symbol j in byte j."""
-    s = symbols[:, : 4 * nsteps].to(torch.int32) & 0xFF
-    s = s.reshape(symbols.shape[0], nsteps, 4)
-    packed = s[..., 0] | (s[..., 1] << 8) | (s[..., 2] << 16) \
-        | (s[..., 3] << 24)
-    return packed.T
+    one trellis step's four symbols in one word, symbol j in byte j (each
+    symbol's low byte: integer casts wrap modulo 256)."""
+    s = symbols[:, : 4 * nsteps].to(torch.uint8).contiguous()
+    return s.view(torch.int32).T
 
 
 def pack_symbols_host(symbols: np.ndarray) -> np.ndarray:

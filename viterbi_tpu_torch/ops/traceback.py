@@ -19,6 +19,8 @@ The port of ``viterbi_tpu.ops.traceback``:
     version ``tb_walk_plain`` on a CPU tensor; ``tb_walk_bytes`` has the
     kernel assemble the decoded bytes in the same launch. Kernel B walks
     a frame in several segments at once (``segment_layout``).
+  * ``chainback_regs_cuda_anchored`` — the same walk with the anchor
+    injected at a per-frame interior checkpoint: block-overlap streaming.
 
 Decision words are int32[T, B, 2] bit patterns: bit s of word s//32 is
 the decision into state s (viterbi.h:89-92).
@@ -68,6 +70,21 @@ def packbits_msb(bits: torch.Tensor) -> torch.Tensor:
     return (b * w).sum(-1).to(torch.uint8)
 
 
+def decision_bit(words: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """The decision into ``state`` at one step: int32[B, 2] decision words
+    and int64[B] states -> int64[B] bits (bit s % 32 of word s // 32)."""
+    word = words.gather(1, (state >> 5)[:, None])[:, 0]
+    # an arithmetic shift of the int32 word, masked to one bit
+    return (word.to(torch.int64) >> (state & 31)) & 1
+
+
+def best_state(metrics: torch.Tensor) -> torch.Tensor:
+    """int32[B] index of each frame's lowest metric, the lowest index on
+    ties (``torch.argmin`` returns the first minimum on every device): the
+    anchor of a walk that does not end in state 0."""
+    return torch.argmin(metrics, dim=1).to(torch.int32)
+
+
 def _walk_bits(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
     """The serial decision walk from state 0: int32[>= framebits+6, B, 2]
     decision words -> int32[framebits, B] decoded bits."""
@@ -77,9 +94,7 @@ def _walk_bits(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
                        device=decisions.device)
     # steps 0..5 are never read: their bits predate the frame
     for t in range(framebits - 1, -1, -1):
-        word = decisions[t + C.TAIL_BITS].gather(1, (state >> 5)[:, None])
-        # an arithmetic shift of the int32 word, masked to one bit
-        k = (word[:, 0].to(torch.int64) >> (state & 31)) & 1
+        k = decision_bit(decisions[t + C.TAIL_BITS], state)
         bits[t] = k
         state = (state >> 1) | (k << 5)
     return bits
@@ -421,9 +436,10 @@ def chainback_regs_cuda(regs: torch.Tensor, framebits: int, ckpt: int = 24,
                         wrap_last6: bool = False,
                         offset: int = 0) -> torch.Tensor:
     """The checkpoint walk and the byte assembly through
-    ``tb_walk_bytes`` (one launch of kernel B on the card; above ckpt 24
-    ``tb_walk``, then the bits in plain torch). Bit-exact vs
-    ``chainback_regs``.
+    ``tb_walk_bytes`` (one launch of kernel B on the card; above ckpt 24,
+    or where a partial last byte is due, ``tb_walk``, then the bits in
+    plain torch). Bit-exact vs ``chainback_regs``: uint8[B,
+    ceil(framebits/8)].
 
     ``tail``/``anchor`` generalize to tail-biting: ``tail=0`` decodes a
     trellis of exactly ``framebits`` steps anchored at ``anchor``
@@ -442,7 +458,7 @@ def chainback_regs_cuda(regs: torch.Tensor, framebits: int, ckpt: int = 24,
     K = regs.shape[0]
     assert K == -(-nsteps // ckpt)
     gap = nsteps - (K - 1) * ckpt
-    if ckpt <= 24:
+    if ckpt <= 24 and framebits % 8 == 0:
         rs, out = tb_walk_bytes(regs, framebits, ckpt, gap, tail, offset,
                                 anchor, anchor_k)
     else:
@@ -457,4 +473,29 @@ def chainback_regs_cuda(regs: torch.Tensor, framebits: int, ckpt: int = 24,
         state0 = (rs[0] >> shift0) & 63
         last = (out[:, -1].to(torch.int32) & 0xC0) | state0
         out[:, -1] = last.to(torch.uint8)
+    return out
+
+
+def chainback_regs_cuda_anchored(regs: torch.Tensor, anchor_k: torch.Tensor,
+                                 anchor_state: torch.Tensor, emit_bits: int,
+                                 ckpt: int) -> torch.Tensor:
+    """The anchored checkpoint walk of block-overlap streaming, the twin
+    of ``chainback_regs_pallas_anchored``: one launch of kernel B on the
+    card (``tb_walk_bytes``), ``tb_walk_plain`` + ``_regs_bytes`` on the
+    CPU.
+
+    ``regs``: int32[K, 64, B] checkpoints of a trellis of exactly K*ckpt
+    steps; ``anchor_k``: int32[B] checkpoint at which ``anchor_state``
+    (int32[B]) is injected; checkpoints above it hold values the emit
+    window never reads. Returns the first ``emit_bits`` (a multiple of 8)
+    decoded bits as uint8[B, emit_bits // 8]. The tail runs to the end
+    of the trellis, so the last emitted byte reads its own window.
+    """
+    if ckpt > 24 or emit_bits % 8:
+        raise ValueError(f"the anchored walk needs ckpt <= 24 and whole "
+                         f"bytes, got ckpt {ckpt}, {emit_bits} bits")
+    K = regs.shape[0]
+    _, out = tb_walk_bytes(regs, emit_bits, ckpt, gap=ckpt,
+                           tail=K * ckpt - emit_bits, anchor=anchor_state,
+                           anchor_k=anchor_k)
     return out
