@@ -97,11 +97,25 @@ Phases (each raises on failure, so the exit code is non-zero):
      utils.pipeline.decode_pipelined over 8 packed 16384 x 3072 batches
      through acs_cuda.decode at depth 1 and 2, equal to one call at a
      time, timed in turns with one pageable call at a time, eight runs
-     each: the median and the range.
+     each: the median and the range;
+ 17. several processes on one card: four ranks spawned on cuda:0 over
+     gloo (parallel.distributed.run_ranks, each job under a wall-clock
+     limit). parallel.batch.decode_sharded of the main-path batch over 2
+     ranks, bit-equal to phase 4's output and to golden on 8 frames;
+     parallel.streaming.decode_stream of 64 streams of 294 912 bits on
+     meshes (1, 2), (1, 4) and (2, 2), bit-equal to
+     make_local_stream_decoder(n_blocks=n_seq) on the card, and a small
+     ring (4 x 3072-bit blocks, 4 streams) whose kernel A and B calls are
+     held against their plain versions in each rank;
+     models.dab.decode_ensemble_sharded of phase 8's 2048 superframes over
+     2 ranks, bit-equal to phase 8's one-process output. Kernels A and B
+     must launch in every rank of each path; each path's wall time and
+     device part. Then harness.scaling's sweep at 1, 2 and 4 ranks of
+     4096 frames of 3072 bits each, with its envelope (a record).
 Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
 before it lists the eight kernels as JSON, each with its launches on its
-path (A, B and C also by path, phases 13-16 included), its time beside
+path (A, B and C also by path, phases 13-17 included), its time beside
 its plain version's, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its integer operations (the
 shortest sequence that computes the step; an add feeding a min counts as
@@ -167,6 +181,16 @@ FRAME_MS = 24.0         # a DAB logical frame: the push's budget
 RING_FRAMES = 8192      # phase 16: frames through the native ring
 INGEST_BATCHES = 8      # packed B_MAIN x FB_MAIN batches pipelined
 INGEST_ROUNDS = 4       # rounds of serial, 1, 2, 2, 1, serial in turns
+# phase 17: several processes on one card, over gloo
+RANKS = 4               # ranks spawned; a smaller mesh takes the first ones
+SHARD_RANKS = 2         # ranks of the data-parallel decode and the ensemble
+RING_MESHES = ((1, 2), (1, 4), (2, 2))    # (n_data, n_seq) of the ring
+RING_STREAMS, RING_BITS = 64, 294912      # STREAM_TPU.json's first shape
+RING_HOLD_ROWS = 4      # frames of each ring call held to the plain versions
+RING_HOLD = (4, 4, 3072)  # (streams, seq ranks, block bits): a small ring
+SWEEP_FRAMES = 4096     # frames a rank in the scaling sweep
+RANK_LIMIT_S = 300      # wall-clock limit of one spawned job
+GROUP_TIMEOUT_S = 120   # a rank's longest wait for a peer
 
 # The card's peaks for the bounds: memory rate (data sheet), and issue
 # rates per SM and clock: 64 int32 lanes, 128 float32 lanes (an add or a
@@ -260,7 +284,7 @@ def max_abs_err(got, want) -> int:
                              f"{tuple(want.shape)}")
     if got.numel() == 0:
         return 0
-    return int((got.long() - want.long()).abs().max().item())
+    return int((got.long() - want.long().to(got.device)).abs().max().item())
 
 
 def cuda_ms(fn, iters: int):
@@ -577,9 +601,10 @@ def hold_path_kernels(flat, framebits, check, what) -> None:
           what + " bytes")
 
 
-def superframe_path(dev, tag, check) -> dict:
+def superframe_path(dev, tag, check):
     """Phase 8: the DAB+ audio-superframe chain at full width on the
-    card; returns kernel A's and B's launch counts on the path."""
+    card; returns kernel A's and B's launch counts on the path, and the
+    path's symbols, audio and error counts (phase 17's inputs)."""
     import torch
     from viterbi_tpu_torch import constants as C
     from viterbi_tpu_torch import golden
@@ -681,7 +706,7 @@ def superframe_path(dev, tag, check) -> dict:
           f"superframes/s with the symbols resident ({res_ms:.2f} ms); "
           f"split Viterbi {vit_ms:.2f} ms, assembly {asm_ms:.2f} ms, RS "
           f"{rs_ms:.2f} ms in {rs_launches} launches")
-    return launches
+    return launches, (syms, out_a, out_e)
 
 
 def rs_export(tag) -> None:
@@ -1525,6 +1550,292 @@ def ingest_phase(dev, tag, packed) -> dict:
     return launches
 
 
+# --- phase 17: several processes on one card ---------------------------------
+
+
+def rank_mesh(name, n_data, n_seq, rank, store):
+    """This rank's place in a mesh of the first n_data * n_seq ranks of the
+    job, on cuda:0 over gloo; None for a rank outside it."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from viterbi_tpu_torch.parallel import mesh
+    if rank >= n_data * n_seq:
+        return None
+    return mesh.make_mesh(
+        n_data, n_seq, rank=rank, world_size=n_data * n_seq,
+        store=dist.PrefixStore(name, store), device=torch.device("cuda", 0),
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+
+
+def timed_path(fn, record=(), runs: int = 3):
+    """(the launches of kernels A and B in one call, its output, the median
+    wall seconds of ``runs`` more calls, each ended by a synchronise, and
+    the first call's calls of each ``(module, name)`` in ``record``)."""
+    import torch
+    with contextlib.ExitStack() as stack:
+        calls = [stack.enter_context(recorded(*r)) for r in record]
+        zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = new_launches()
+    del launches["acs_words"]
+    for name, count in launches.items():
+        assert count > 0, f"a rank never launched {name}: {launches}"
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return launches, out, statistics.median(walls), calls
+
+
+def in_turns(m, fn):
+    """``fn()`` (None: nothing) in this rank's turn, one rank of mesh ``m``
+    at a time: processes on one card take turns on it, so a device time
+    taken while others run counts theirs too. Every rank of ``m`` calls
+    it. Returns ``fn``'s result."""
+    import torch
+    from viterbi_tpu_torch.parallel import mesh
+
+    def barrier():
+        # a row, then a column: once both are through, every rank arrived
+        for axis in (mesh.SEQ_AXIS, mesh.DATA_AXIS):
+            mesh.all_gather_rows(m.groups[axis], torch.zeros(1))
+
+    out = None
+    for turn in range(m.shape[mesh.DATA_AXIS] * m.shape[mesh.SEQ_AXIS]):
+        barrier()
+        if turn == m.rank and fn is not None:
+            out = fn()
+    barrier()
+    return out
+
+
+def hold_ring_call(fwd, walk, check, what, rows=None) -> None:
+    """Kernels A and B of one recorded ring call (``forward_regs`` twice,
+    ``chainback_regs_cuda_anchored`` once) against their plain versions on
+    the call's own inputs, at the call's full depth, on its first ``rows``
+    frames (None: all; the frames are independent). The plain versions
+    run on host copies: several ranks' small launches would take turns
+    on the one card."""
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    n = slice(rows)
+    for (words, nsteps), kw, (regs, metrics) in fwd:
+        r_p, m_p = acs_cuda.forward_regs_plain(
+            words[n].cpu(), nsteps, **dict(
+                kw, initial_metrics=kw["initial_metrics"][n].cpu()))
+        check("acs_regs", regs[:, :, n], r_p, f"{what}, {nsteps} steps")
+        check("acs_regs", metrics[n], m_p, f"{what}, {nsteps} steps")
+    (regs, k, state, emit, ckpt), _, got = walk[0]
+    want_rs = tb.tb_walk_plain(regs[:, :, n].cpu(), ckpt, ckpt,
+                               state[n].cpu(), k[n].cpu())
+    check("tb_walk", got[n], tb._regs_bytes(
+        want_rs, emit, ckpt, ckpt, regs.shape[0] * ckpt - emit),
+        f"{what} walk, {regs.shape[0]} checkpoints of {ckpt}")
+
+
+def several_rank(rank, world_size, store, data_dir):
+    """One rank of phase 17 (a spawned process): every path it takes part
+    in, checked bit for bit against what the parent wrote; returns each
+    path's launches, wall and device ms, and the kernels' max errors."""
+    import torch
+    import viterbi_tpu_torch
+    from viterbi_tpu_torch import api
+    from viterbi_tpu_torch.models import dab
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import traceback as tb
+    from viterbi_tpu_torch.parallel import batch, mesh, streaming
+    from viterbi_tpu_torch.runtime import dispatch
+    torch.cuda.set_device(0)
+    viterbi_tpu_torch.initialize()
+    variant = dispatch.VARIANTS[dispatch.state().variant]
+    assert variant == "cuda_fused", f"rank {rank} took {variant}"
+    # every rank of the job, set up before any path starts: a rank that
+    # still made its CUDA context slowed the card for the others
+    job = rank_mesh("job", world_size, 1, rank, store)
+    d = Path(data_dir)
+    load = lambda name: np.load(d / f"{name}.npy", mmap_mode="r")
+    res = {"paths": {}, "errs": {"acs_regs": 0, "tb_walk": 0}}
+
+    def check(kernel, got, want, what):
+        e = max_abs_err(got, want)
+        res["errs"][kernel] = max(res["errs"][kernel], e)
+        if e:
+            raise AssertionError(f"rank {rank}: {kernel} differs from its "
+                                 f"plain version ({what}): max abs err {e}")
+
+    def record(path, launches=None, wall_s=None, parts=None):
+        """A path's record; ``parts`` maps each part of a call to a
+        function that returns its device ms, timed in this rank's turn of
+        the job. Every rank calls it after each path, one outside the path
+        with nothing."""
+        timed = in_turns(job, parts and (
+            lambda: {k: f() for k, f in parts.items()}))
+        if parts:
+            res["paths"][path] = {"launches": launches,
+                                  "wall_ms": 1e3 * wall_s, "parts": timed}
+
+    # DP: the main-path batch over SHARD_RANKS ranks
+    m = rank_mesh("sharded", SHARD_RANKS, 1, rank, store)
+    if m is not None:
+        syms = load("dp_syms")
+        launches, out, wall, _ = timed_path(
+            lambda: batch.decode_sharded(syms, FB_MAIN, m))
+        got = out.cpu().numpy()
+        assert np.array_equal(got, load("dp_want")), \
+            "decode_sharded != the one-process deconvolve_batch"
+        assert np.array_equal(got[:8], load("dp_golden")), \
+            "decode_sharded != golden"
+        rows = torch.from_numpy(np.ascontiguousarray(
+            mesh.local_rows(syms, m), dtype=np.int32)).cuda()
+        record("sharded", launches, wall, {"A + B": lambda: cuda_ms(
+            lambda: api._decode_tensor(rows, FB_MAIN, variant), 5)[0]})
+        del rows, out
+    else:
+        record("sharded")
+    # the ring at STREAM_TPU.json's shape, on each mesh
+    for n_data, n_seq in RING_MESHES:
+        m = rank_mesh(f"ring{n_data}x{n_seq}", n_data, n_seq, rank, store)
+        if m is None:
+            record(f"ring {n_data}x{n_seq}")
+            continue
+        rsyms = load("ring_syms")
+        data = rsyms[:, :4 * RING_BITS]
+        tail = rsyms[:, 4 * RING_BITS:]
+        dec = streaming.make_stream_decoder(m, RING_BITS)
+        launches, out, wall, (fwd, walk) = timed_path(
+            lambda: dec(data, tail), ((acs_cuda, "forward_regs"),
+                                      (tb, "chainback_regs_cuda_anchored")))
+        assert np.array_equal(out.cpu().numpy(), load(f"ring_want_{n_seq}")),\
+            f"ring {n_data} x {n_seq} != the local decoder of {n_seq} blocks"
+        hold_ring_call(fwd, walk, check, f"ring {n_data} x {n_seq} rank "
+                       f"{rank}", RING_HOLD_ROWS)
+        (wa, wkw, _), (fa, fkw, _) = fwd
+        record(f"ring {n_data}x{n_seq}", launches, wall, {
+            "A warm-up": lambda: cuda_ms(
+                lambda: acs_cuda.forward_regs(*wa, **wkw), 5)[0],
+            "A full pass": lambda: cuda_ms(
+                lambda: acs_cuda.forward_regs(*fa, **fkw), 5)[0],
+            "B": lambda: cuda_ms(
+                lambda: tb.chainback_regs_cuda_anchored(*walk[0][0]), 5)[0]})
+        del fwd, walk, out, wa, fa
+    # and on every frame of a small ring's calls
+    streams, n_seq, blk = RING_HOLD
+    m = rank_mesh("hold", 1, n_seq, rank, store)
+    if m is not None:
+        hsyms = torch.from_numpy(np.array(load("hold_syms"))).cuda()
+        sb = n_seq * blk
+        with recorded(acs_cuda, "forward_regs") as fwd, \
+                recorded(tb, "chainback_regs_cuda_anchored") as walk:
+            out = streaming.decode_stream(hsyms, sb, m)
+        assert torch.equal(out, streaming.make_local_stream_decoder(
+            sb, n_seq)(hsyms[:, :4 * sb], hsyms[:, 4 * sb:]))
+        hold_ring_call(fwd, walk, check, f"small ring rank {rank}")
+        del fwd, walk
+    # the DAB+ ensemble: phase 8's superframes over SHARD_RANKS ranks
+    m = rank_mesh("ensemble", SHARD_RANKS, 1, rank, store)
+    if m is not None:
+        esyms = load("ens_syms")
+        launches, (audio, errors), wall, _ = timed_path(
+            lambda: dab.decode_ensemble_sharded(esyms, SF_KBPS, m))
+        assert np.array_equal(audio.cpu().numpy(), load("ens_audio")) and \
+            np.array_equal(errors.cpu().numpy(), load("ens_errors")), \
+            "decode_ensemble_sharded != the one-process chain"
+        rows = torch.from_numpy(np.ascontiguousarray(
+            mesh.local_rows(esyms, m), dtype=np.int32)).cuda()
+        record("ensemble", launches, wall, {"chain": lambda: cuda_ms(
+            lambda: dab.decode_audio_superframes(rows, SF_KBPS), 5)[0]})
+    else:
+        record("ensemble")
+    return res
+
+
+def several_phase(dev, tag, syms, out, expect8, sf) -> dict:
+    """Phase 17: the data-parallel decode, the ring and the ensemble in
+    ranks that share the card, then the scaling sweep; returns the
+    launches a rank of each path made (for the kernels line) and the
+    kernels' max errors in the ranks."""
+    import torch
+    from viterbi_tpu_torch.harness import scaling
+    from viterbi_tpu_torch.parallel import distributed, streaming
+    d = ROOT / "build" / "chip_smoke" / "phase17"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # symbols as bytes: only a symbol's low byte counts
+    np.save(d / "dp_syms.npy", syms.astype(np.uint8))
+    np.save(d / "dp_want.npy", out)
+    np.save(d / "dp_golden.npy", expect8)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bits = torch.randint(0, 2, (RING_STREAMS, RING_BITS), generator=gen,
+                         device=dev)
+    rsyms = card_symbols(bits, False, gen)
+    data, tail = rsyms[:, :4 * RING_BITS], rsyms[:, 4 * RING_BITS:]
+    for n_seq in sorted({n for _, n in RING_MESHES}):
+        want = streaming.make_local_stream_decoder(RING_BITS, n_seq)(data,
+                                                                     tail)
+        np.save(d / f"ring_want_{n_seq}.npy", want.cpu().numpy())
+    nerr = bit_errors(want, bits)
+    np.save(d / "ring_syms.npy", rsyms.to(torch.uint8).cpu().numpy())
+    del bits, rsyms, data, tail, want
+    streams, n_seq, blk = RING_HOLD
+    from viterbi_tpu_torch.harness import channel
+    np.save(d / "hold_syms.npy",
+            channel.make_frames(streams, n_seq * blk, seed=17)[1])
+    sf_syms, sf_audio, sf_errors = sf
+    np.save(d / "ens_syms.npy", sf_syms.astype(np.uint8))
+    np.save(d / "ens_audio.npy", sf_audio)
+    np.save(d / "ens_errors.npy", sf_errors)
+    print(f"several processes: inputs and one-process results written in "
+          f"{time.perf_counter() - t0:.1f} s ({nerr} bit errors in the "
+          f"ring's streams through the local decoder)")
+    # the blocks this process's allocator keeps would leave the ranks too
+    # little device memory: their allocators would free and synchronise
+    # inside the timed calls
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"several processes: {free / 2**30:.1f} of {total / 2**30:.1f} GiB "
+          f"of device memory free for the ranks")
+    t0 = time.perf_counter()
+    ranks = distributed.run_ranks(several_rank, RANKS, (str(d),),
+                                  timeout=RANK_LIMIT_S)
+    print(f"several processes: {RANKS} ranks on {dev} over gloo, "
+          f"{time.perf_counter() - t0:.1f} s from spawn to the last rank's "
+          f"end")
+    errs = {k: max(r["errs"][k] for r in ranks) for k in ("acs_regs",
+                                                         "tb_walk")}
+    launches = {}
+    for path in ranks[0]["paths"]:
+        took = [r["paths"][path] for r in ranks if path in r["paths"]]
+        per_rank = [t["launches"] for t in took]
+        assert all(p == per_rank[0] for p in per_rank), (path, per_rank)
+        print(f"{tag} {path}: {len(took)} ranks, each launching "
+              f"{per_rank[0]}; wall ms a call (median of 3, the ranks at "
+              f"once) by rank {[round(t['wall_ms'], 2) for t in took]}; "
+              f"device ms of a call's parts, each rank alone on the card "
+              f"(CUDA events): "
+              + "; ".join(parts_text(t["parts"]) for t in took))
+        key = path.split()[0]
+        launches.setdefault(key, per_rank[0])
+    print(f"several processes: kernels A and B bit-identical to their plain "
+          f"versions in every rank, on {RING_HOLD_ROWS} frames of each ring "
+          f"call at its full depth and on the whole of a "
+          f"{RING_HOLD[0]}-stream ring of {RING_HOLD[1]} x {RING_HOLD[2]}-bit "
+          f"blocks; every path equal to its one-process counterpart")
+    t0 = time.perf_counter()
+    sweep = scaling.sweep(SWEEP_FRAMES, FB_MAIN, loops=3, repeats=2,
+                          max_ranks=RANKS, device=dev, timeout=RANK_LIMIT_S)
+    for n, r in sweep.items():
+        print(f"{tag} scaling: ranks={n} x {SWEEP_FRAMES} frames of "
+              f"{FB_MAIN} bits on one card: {r['mbit_s']:.1f} Mbit/s, "
+              f"efficiency {r['efficiency']:.3f}, envelope "
+              f"{r['predicted_envelope']}")
+    print(f"scaling sweep: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "errs": errs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1894,7 +2205,7 @@ def main() -> int:
     # --- phases 8-11: the superframe chain, RS, EEP, replay -----------------
     rung("cuda_fused")
     t0 = time.perf_counter()
-    sf_launches = superframe_path(dev, tag, check)
+    sf_launches, sf = superframe_path(dev, tag, check)
     print(f"superframe phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rs_export(tag)
@@ -1927,6 +2238,15 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"{name} phase: {time.perf_counter() - t0:.1f} s")
     print(f"phases 13-16: {time.perf_counter() - t_new:.1f} s")
+
+    # --- phase 17: several processes on one card ------------------------------
+    t0 = time.perf_counter()
+    several = several_phase(dev, tag, syms, out, expect8, sf)
+    del sf
+    paths.update(several["launches"])
+    for name, e in several["errs"].items():
+        errs[name] = max(errs[name], e)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     csrc = "viterbi_tpu_torch/csrc/"
     meta = {

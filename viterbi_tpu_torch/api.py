@@ -140,12 +140,14 @@ def _block(framebits: int, block: int) -> int:
 
 
 def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
-                   packed: bool = False) -> torch.Tensor:
+                   packed: bool = False,
+                   block: int | None = None) -> torch.Tensor:
     """Decode symbols that already lie on the decode device through the
     named rung: [B, 4*(framebits+6)] symbols, or frame-major packed words
     int32[B, framebits+6] (``packed=True``, framebits % 8 == 0: every
-    kernel and its plain version reads them in place). Returns uint8[B,
-    ceil(framebits/8)] on that device."""
+    kernel and its plain version reads them in place). ``block`` is the
+    blocked traceback's block (default: the config key). Returns
+    uint8[B, ceil(framebits/8)] on that device."""
     layout = "bt" if packed else False
     if framebits % 8:
         if packed:
@@ -157,7 +159,7 @@ def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
         return acs_cuda.decode(syms, framebits, packed=layout)
     st = dispatch.state()
     nsteps = framebits + C.TAIL_BITS
-    block = _block(framebits, st.config.traceback_block)
+    block = _block(framebits, block or st.config.traceback_block)
     # the torch_* rungs are traceback strategies: their forward pass is the
     # decisions kernel wherever the kernels are built. On a CPU tensor
     # acs_cuda.forward is its plain version, which takes the same layouts.

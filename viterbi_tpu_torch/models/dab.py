@@ -23,8 +23,9 @@ device. A host array goes to the card where there is one, unless the
 caller names a device. ``use_kernels=None`` takes the Hopper kernels
 (``acs_cuda.decode``: the fused ACS and the checkpoint walk) for symbols
 on a CUDA device and the plain path for symbols on the CPU;
-``use_kernels=True`` on CPU symbols raises. The sharded ensemble entry
-point waits for the port of ``parallel``.
+``use_kernels=True`` on CPU symbols raises. ``decode_ensemble_sharded``
+runs the chain data-parallel over the ranks of a mesh
+(``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import torch
 
 from .. import constants as C
 from ..ops import acs, acs_cuda, rs as rs_ops, traceback
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..runtime.placement import on_device, want_kernels
 from . import puncture as P
 
@@ -134,6 +137,33 @@ def decode_audio_superframes(symbols, bitrate_kbps: int,
     sf = bytes_to_superframes(
         frame_bytes.reshape(B, SUPERFRAME_FRAMES, cfg.frame_bytes), cfg)
     return rs_superframes(sf, cfg.rs_dims)
+
+
+def decode_ensemble_sharded(symbols, bitrate_kbps: int,
+                            mesh: mesh_mod.Mesh | None = None,
+                            use_kernels: bool | None = None):
+    """The full DAB+ audio chain data-parallel over the mesh's data axis:
+    a batch of subchannel superframes -> Viterbi -> superframe assembly ->
+    RS -> audio bytes and error counts (the QIRX composition the DLL
+    serves, rschecksf.cpp:58-93, spread over ranks instead of host
+    threads).
+
+    ``symbols``: int[B, 5, 4*(framebits+6)], the whole batch on every rank
+    (a tensor or a host array; only this rank's rows go to its device),
+    ``B`` divisible by the data-axis size. Each rank runs
+    ``decode_audio_superframes`` on its rows (on a card: kernels A and B,
+    then RS in plain torch) on the mesh's device. ``mesh=None`` takes the
+    job's node mesh. Returns (audio uint8[B, rs_dims*110], errors
+    int32[B]) on every rank.
+    """
+    if mesh is None:
+        mesh = distributed.make_node_mesh()
+    audio, errors = decode_audio_superframes(
+        mesh_mod.local_rows(symbols, mesh), bitrate_kbps, use_kernels,
+        mesh.device)
+    group = mesh.groups[mesh_mod.DATA_AXIS]
+    return (mesh_mod.all_gather_rows(group, audio),
+            mesh_mod.all_gather_rows(group, errors))
 
 
 def depuncture_device(received: torch.Tensor, mask,

@@ -1,32 +1,40 @@
-"""Block-overlap streaming Viterbi on one card: the port of the one-card
-half of ``viterbi_tpu.parallel.streaming``.
+"""Block-overlap streaming Viterbi: the port of
+``viterbi_tpu.parallel.streaming``.
 
-One long terminated stream is cut into ``n_blocks`` time blocks, and the
-blocks are folded into the batch (row ``b * n_blocks + d`` holds block d
-of stream b), so that every block's ACS runs at once instead of one
-serial trellis over the whole stream. Each block:
+One long terminated stream is cut into time blocks, and every block is
+decoded at once instead of one serial trellis over the whole stream. Each
+block:
 
   1. runs a short warm-up ACS over the end of its own block from uniform
      metrics (the decoder forgets its initial condition in about 5K
      steps, so the boundary metrics come out effectively exact); the
      first block of a stream starts from the terminated start instead;
-  2. takes its left neighbour's boundary metrics as entry metrics: the
-     ring is a roll along the block axis;
+  2. takes its left neighbour's boundary metrics as entry metrics;
   3. re-runs ACS over its block plus an overlap of its right neighbour's
      first steps (the last block: the six tail steps, then zeros);
   4. walks back from the overlap's end (the best state; the last block
      from state 0 at the true termination) and keeps its own block's bits
      only: the overlap absorbs the anchor's uncertainty.
 
+Two forms of the same mechanism. ``make_local_stream_decoder`` folds the
+blocks into the batch of one device (row ``b * n_blocks + d`` holds block
+d of stream b): the exchanges are rolls along the block axis.
+``make_stream_decoder`` puts block d on seq rank d of a mesh
+(``parallel.mesh``): the boundary metrics go to the right neighbour and
+the overlap prefix to the left one as point-to-point sends, the
+``ppermute``s of the JAX ring, two a call whatever the stream's length.
+Both hand their rows to one core, ``_decode_blocks``, with the two
+exchanges as functions.
+
 No reference analog: the DLL decodes long streams 9216-bit frame by frame
 with a metric reset at every boundary (deconvolve.cpp:97-100).
 
 With the kernels (symbols on a card) the symbols are packed to one word a
-step first, so every slice, roll and concatenation moves a quarter of the
-bytes, and the folded rows feed kernel A frame-major (``packed="bt"``)
-in place: kernel A runs the warm-up and the full pass, kernel B the
-anchored walk with the bytes (``traceback.chainback_regs_cuda_anchored``),
-three launches a call. Without: ``acs.forward`` twice and
+step first, so every slice, exchange and concatenation moves a quarter of
+the bytes, and the words feed kernel A frame-major (``packed="bt"``) in
+place: kernel A runs the warm-up and the full pass, kernel B the anchored
+walk with the bytes (``traceback.chainback_regs_cuda_anchored``), three
+launches a call (a rank). Without: ``acs.forward`` twice and
 ``_anchored_chainback``. Both are bit-identical to the JAX package.
 """
 
@@ -38,6 +46,8 @@ from .. import constants as C
 from ..ops import acs, acs_cuda
 from ..ops import traceback as tb
 from ..runtime.placement import default_device, on_device, want_kernels
+from . import distributed
+from . import mesh as mesh_mod
 
 # Overlap is the truncation-reliability knob: the measured sweep
 # (OVERLAP_SWEEP.json, scripts/overlap_sweep.py; 3.1 Mbit per cell at
@@ -135,31 +145,72 @@ def _plan_block_layout(blk: int, overlap, warmup, use_kernels: bool):
     return overlap, warm, ckpt
 
 
-def _entry_metrics(bmet: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """Block d's entry metrics are block d-1's boundary metrics (a roll
-    along the block axis); first blocks enter from the terminated start."""
-    N = bmet.shape[0]
-    entry = torch.roll(bmet.reshape(N // n_blocks, n_blocks, -1), 1,
-                       dims=1).reshape(N, -1)
-    entry[::n_blocks] = acs.init_metrics(1, bmet.device)
-    return entry
+def _decode_blocks(x: torch.Tensor, tail: torch.Tensor, right, left,
+                   first: slice, last: slice, blk: int, overlap: int,
+                   warm: int, ckpt: int | None) -> torch.Tensor:
+    """The block-overlap mechanism, one block a row, in both forms.
+
+    ``x``: this call's blocks, one a row: packed words int32[N, blk]
+    (``ckpt`` set: kernel A twice and kernel B once, their plain versions
+    on a CPU tensor) or symbols int32[N, 4*blk] (``ckpt=None``: the plain
+    form, ``acs.forward`` twice and ``_anchored_chainback``). ``tail``:
+    the tail columns of the rows ``last`` selects, in ``x``'s layout.
+    ``right(t)`` gives each row ``t`` of the row holding the previous
+    block, ``left(t)`` that of the next block: the two exchanges, made in
+    this order. ``first`` and ``last`` select the rows holding the first
+    and the last block of a stream. Returns uint8[N, blk // 8]."""
+    r = C.RATE if ckpt is None else 1          # columns a step
+    if ckpt is None:
+        fwd = acs.forward
+    else:
+        fwd = lambda s, n, init: acs_cuda.forward_regs(
+            s, n, initial_metrics=init, ckpt=ckpt, packed="bt")
+    N, dev = x.shape[0], x.device
+    init = _uniform_metrics(N, dev)
+    init[first, 0] = 0                         # the terminated start
+    _, bmet = fwd(x[:, r * (blk - warm):], warm, init)
+    # boundary metrics ride right, the overlap prefix rides left
+    entry = right(bmet)
+    entry[first] = acs.init_metrics(1, dev)
+    ext = left(x[:, :r * overlap])
+    ext[last] = 0                              # the tail, then zeros
+    ext[last, :r * C.TAIL_BITS] = tail
+    out, fmet = fwd(torch.cat([x, ext], dim=1), blk + overlap, entry)
+    # anchor: the best state at the overlap's end; the last block state 0
+    # after the tail, its true termination
+    state = tb.best_state(fmet)
+    state[last] = 0
+    if ckpt is None:
+        pos = torch.full_like(state, blk + overlap - 1)
+        pos[last] = blk + C.TAIL_BITS - 1
+        return _anchored_chainback(out, pos, state, blk + overlap, blk)
+    pos = torch.full_like(state, (blk + overlap) // ckpt - 1)
+    pos[last] = (blk + C.TAIL_BITS) // ckpt - 1
+    return tb.chainback_regs_cuda_anchored(out, pos, state, blk, ckpt)
 
 
-def _warm_init(N: int, n_blocks: int, device) -> torch.Tensor:
-    """Warm-up start: uniform metrics, first blocks the terminated start."""
-    init = _uniform_metrics(N, device)
-    init[::n_blocks, 0] = 0
-    return init
+def _folded(syms: torch.Tensor, tail_syms: torch.Tensor, n_blocks: int,
+            blk: int, overlap: int, warm: int, ckpt: int | None):
+    """The blocks folded into the batch (row ``b * n_blocks + d`` holds
+    block d of stream b): the exchanges are rolls along the block axis."""
+    B = syms.shape[0]
+    if ckpt is None:
+        x = syms[:, :C.RATE * n_blocks * blk].to(torch.int32)
+        tail = tail_syms.to(torch.int32)
+    else:   # frame-major words [B, T]: the transpose of pack_symbols' view
+        x = acs_cuda.pack_symbols(syms, n_blocks * blk).T
+        tail = acs_cuda.pack_symbols(tail_syms, C.TAIL_BITS).T
+    x = x.reshape(B * n_blocks, -1)
 
+    def roll(by):
+        return lambda t: torch.roll(t.reshape(B, n_blocks, -1), by,
+                                    dims=1).reshape(B * n_blocks, -1)
 
-def _anchors(best: torch.Tensor, n_blocks: int, at: int, last_at: int):
-    """(anchor states, anchor positions) int32[N]: the best state at
-    ``at``, the last block of each stream state 0 at ``last_at``."""
-    state = best.clone()
-    state[n_blocks - 1::n_blocks] = 0
-    pos = torch.full_like(state, at)
-    pos[n_blocks - 1::n_blocks] = last_at
-    return state, pos
+    out = _decode_blocks(x, tail, roll(1), roll(-1),
+                         slice(None, None, n_blocks),
+                         slice(n_blocks - 1, None, n_blocks),
+                         blk, overlap, warm, ckpt)
+    return out.reshape(B, n_blocks * blk // 8)
 
 
 def decode_kernels(syms: torch.Tensor, tail_syms: torch.Tensor,
@@ -168,49 +219,7 @@ def decode_kernels(syms: torch.Tensor, tail_syms: torch.Tensor,
     """The kernel form: two launches of kernel A, one of kernel B (their
     plain versions on a CPU tensor). ``syms``: int[B, >= 4*n_blocks*blk],
     ``tail_syms``: int[B, 24]. Returns uint8[B, n_blocks*blk // 8]."""
-    B, N = syms.shape[0], syms.shape[0] * n_blocks
-    # frame-major words [B, T]: the transpose of pack_symbols' view
-    words = acs_cuda.pack_symbols(syms, n_blocks * blk).T
-    flat = words.reshape(N, blk)                 # row b*n_blocks + d
-    ext = torch.roll(flat[:, :overlap].reshape(B, n_blocks, overlap), -1,
-                     dims=1)                     # the right neighbour's prefix
-    ext[:, -1, :C.TAIL_BITS] = acs_cuda.pack_symbols(tail_syms,
-                                                     C.TAIL_BITS).T
-    ext[:, -1, C.TAIL_BITS:] = 0
-    full = torch.cat([flat, ext.reshape(N, overlap)], dim=1)
-    fwd = lambda s, n, init: acs_cuda.forward_regs(
-        s, n, initial_metrics=init, ckpt=ckpt, packed="bt")
-    _, bmet = fwd(flat[:, blk - warm:], warm, _warm_init(N, n_blocks,
-                                                         syms.device))
-    regs, fmet = fwd(full, blk + overlap, _entry_metrics(bmet, n_blocks))
-    state, k = _anchors(tb.best_state(fmet), n_blocks,
-                        (blk + overlap) // ckpt - 1,
-                        (blk + C.TAIL_BITS) // ckpt - 1)
-    out = tb.chainback_regs_cuda_anchored(regs, k, state, blk, ckpt)
-    return out.reshape(B, n_blocks * blk // 8)
-
-
-def decode_plain(syms: torch.Tensor, tail_syms: torch.Tensor,
-                 n_blocks: int, blk: int, overlap: int,
-                 warm: int) -> torch.Tensor:
-    """The plain form: ``acs.forward`` twice and ``_anchored_chainback``.
-    Same arguments and result as ``decode_kernels``."""
-    B, N = syms.shape[0], syms.shape[0] * n_blocks
-    flat = syms[:, :C.RATE * n_blocks * blk].to(torch.int32) \
-        .reshape(N, C.RATE * blk)
-    ext = torch.roll(flat[:, :C.RATE * overlap].reshape(B, n_blocks, -1),
-                     -1, dims=1)
-    ext[:, -1, :C.RATE * C.TAIL_BITS] = tail_syms.to(torch.int32)
-    ext[:, -1, C.RATE * C.TAIL_BITS:] = 0
-    full = torch.cat([flat, ext.reshape(N, -1)], dim=1)
-    _, bmet = acs.forward(flat[:, C.RATE * (blk - warm):], warm,
-                          _warm_init(N, n_blocks, syms.device))
-    hist, fmet = acs.forward(full, blk + overlap,
-                             _entry_metrics(bmet, n_blocks))
-    state, j = _anchors(tb.best_state(fmet), n_blocks,
-                        blk + overlap - 1, blk + C.TAIL_BITS - 1)
-    out = _anchored_chainback(hist, j, state, blk + overlap, blk)
-    return out.reshape(B, n_blocks * blk // 8)
+    return _folded(syms, tail_syms, n_blocks, blk, overlap, warm, ckpt)
 
 
 def make_local_stream_decoder(stream_bits: int, n_blocks: int,
@@ -252,11 +261,103 @@ def make_local_stream_decoder(stream_bits: int, n_blocks: int,
                 f"symbols must be [B, {C.RATE * stream_bits}] and tail "
                 f"symbols [B, {C.RATE * C.TAIL_BITS}], got "
                 f"{list(syms.shape)} and {list(tail.shape)}")
-        if want_kernels(use_kernels, syms.device):
-            ovl, warm, ckpt = plan(True)
-            return decode_kernels(syms, tail, n_blocks, blk, ovl, warm,
-                                  ckpt)
-        ovl, warm, _ = plan(False)
-        return decode_plain(syms, tail, n_blocks, blk, ovl, warm)
+        return _folded(syms, tail, n_blocks, blk,
+                       *plan(want_kernels(use_kernels, syms.device)))
 
     return decode
+
+
+def _ring(syms: torch.Tensor, tail_syms: torch.Tensor, group, s: int,
+          n_seq: int, blk: int, overlap: int, warm: int,
+          ckpt: int | None) -> torch.Tensor:
+    """Seq rank ``s``'s block of every frame: the exchanges are sends to
+    the ring's neighbours. ``syms``: int[B, 4*blk] this block's symbols,
+    ``tail_syms``: int[B, 24]; ``ckpt=None`` the plain form. Returns
+    uint8[B, blk // 8]."""
+    if ckpt is None:
+        x = syms[:, :C.RATE * blk].to(torch.int32)
+        tail = tail_syms.to(torch.int32)
+    else:
+        x = acs_cuda.pack_symbols(syms, blk).T       # frame-major [B, blk]
+        tail = acs_cuda.pack_symbols(tail_syms, C.TAIL_BITS).T
+    first = slice(None) if s == 0 else slice(0)      # all rows or none
+    last = slice(None) if s == n_seq - 1 else slice(0)
+
+    def shift(dst, src, tag):
+        def send(t):
+            got = mesh_mod.exchange(group, t, dst, src, tag)
+            return torch.zeros_like(t) if got is None else got
+        return send
+
+    right = shift(s + 1 if s < n_seq - 1 else None,
+                  s - 1 if s > 0 else None, 0)
+    left = shift(s - 1 if s > 0 else None,
+                 s + 1 if s < n_seq - 1 else None, 1)
+    return _decode_blocks(x, tail[last], right, left, first, last, blk,
+                          overlap, warm, ckpt)
+
+
+def make_stream_decoder(mesh: mesh_mod.Mesh, stream_bits: int,
+                        overlap: int | None = None,
+                        use_kernels: bool | None = None,
+                        warmup: int | None = None):
+    """The ring: terminated streams of ``stream_bits`` data bits, block d
+    on seq rank d of ``mesh``, frames over its data axis.
+
+    ``overlap=None`` takes ``DEFAULT_OVERLAP``, clamped or aligned to fit
+    small blocks; an explicit overlap that cannot fit raises. The layout
+    is planned here for the form ``use_kernels`` gives on the mesh's
+    device (``None``: the kernels on a card, the plain form on the CPU),
+    so a block too small for it raises at once.
+
+    Returns ``decode(symbols, tail_syms)``: ``symbols`` int[B,
+    4*stream_bits] the data-bit symbols, ``tail_syms`` int[B, 24] the
+    flush-bit symbols, the whole batch on every rank (tensors or host
+    arrays; only this rank's block goes to its device); ``B`` divides over
+    the data axis. Every rank gets uint8[B, stream_bits // 8] on its
+    device, the same as ``make_local_stream_decoder(stream_bits,
+    n_blocks=n_seq)`` gives on one.
+    """
+    n_seq = mesh.shape[mesh_mod.SEQ_AXIS]
+    if stream_bits % n_seq:
+        raise ValueError(f"{stream_bits} stream bits do not divide over "
+                         f"{n_seq} seq ranks")
+    blk = stream_bits // n_seq
+    overlap, warm, ckpt = _plan_block_layout(
+        blk, overlap, warmup, want_kernels(use_kernels, mesh.device))
+    s = mesh.coords[mesh_mod.SEQ_AXIS]
+    ring = mesh.groups[mesh_mod.SEQ_AXIS]
+
+    def decode(symbols, tail_syms):
+        if symbols.ndim != 2 or symbols.shape[1] < C.RATE * stream_bits \
+                or tuple(tail_syms.shape) != (symbols.shape[0],
+                                              C.RATE * C.TAIL_BITS):
+            raise ValueError(
+                f"symbols must be [B, {C.RATE * stream_bits}] and tail "
+                f"symbols [B, {C.RATE * C.TAIL_BITS}], got "
+                f"{list(symbols.shape)} and {list(tail_syms.shape)}")
+        rows = mesh_mod.local_rows(symbols, mesh)
+        syms = on_device(rows[:, C.RATE * blk * s: C.RATE * blk * (s + 1)],
+                         mesh.device)
+        tail = on_device(mesh_mod.local_rows(tail_syms, mesh), mesh.device)
+        out = _ring(syms, tail, ring, s, n_seq, blk, overlap, warm, ckpt)
+        out = mesh_mod.all_gather_rows(ring, out, dim=1)
+        return mesh_mod.all_gather_rows(mesh.groups[mesh_mod.DATA_AXIS], out)
+
+    return decode
+
+
+def decode_stream(symbols, framebits: int, mesh: mesh_mod.Mesh | None = None,
+                  overlap: int | None = None,
+                  use_kernels: bool | None = None,
+                  warmup: int | None = None) -> torch.Tensor:
+    """``symbols`` int[B, 4*(framebits+6)] of terminated streams: split
+    the data and tail symbols and decode on the ring. ``mesh=None`` takes
+    one ring over the whole job (``distributed.make_node_mesh``). Returns
+    uint8[B, framebits // 8] on every rank."""
+    if mesh is None:
+        mesh = distributed.make_node_mesh(distributed.job()[0])
+    data = symbols[:, :C.RATE * framebits]
+    tail = symbols[:, C.RATE * framebits: C.RATE * (framebits + C.TAIL_BITS)]
+    return make_stream_decoder(mesh, framebits, overlap, use_kernels,
+                               warmup)(data, tail)
