@@ -78,22 +78,23 @@ Phases (each raises on failure, so the exit code is non-zero):
      path's own inputs; a batch with forced end-metric ties (argmin takes
      the lowest state on the card), the tie fixture, framebits 8, 32 and
      9216;
- 14. streaming: make_local_stream_decoder at the shapes of
-     STREAM_TPU.json (64 streams of 96 blocks of 3072 bits, 256 of 24)
-     and with a block whose overlap the layout rounds (480 bits): two
-     launches of kernel A and one of kernel B a call, equal to the plain
-     path on the card and on 4 streams to the whole-stream decode through
-     kernels A and B; kernel A against its plain version on the call's
-     inputs, kernel B in every form on the call's anchors, which lie
-     below the top checkpoint; Gsym/s beside cuda_fused's kernels;
- 15. session: StreamSession on 64 streams of 3072-bit chunks (128
-     kbit/s), 40 pushes and a flush, then chunks of 5 frames: equal to
-     the one-shot decode through kernels A and B, three launches a push,
-     push time p50 under the 24 ms frame (and its max); kernels A and B
-     against their plain versions on the last push; the plain session on
-     the CPU equal on 2 streams;
- 16. host ingest: libvitio.so built from native/vitio.cpp and equal to
-     its numpy fall-backs, a frame ring fed by 4 threads, and
+ 14. streaming (viterbi_tpu_torch.tools.stream.cell):
+     make_local_stream_decoder at the shapes of STREAM_TPU.json (64
+     streams of 96 blocks of 3072 bits, 256 of 24) and with a block whose
+     overlap the layout rounds (480 bits): two launches of kernel A and
+     one of kernel B a call, equal to the plain path on the card and on 4
+     streams to the whole-stream decode through kernels A and B; kernel A
+     against its plain version on the call's inputs, kernel B in every
+     form on the call's anchors, which lie below the top checkpoint;
+     Gsym/s beside cuda_fused's kernels;
+ 15. session (tools.session): StreamSession on 64 streams of 3072-bit
+     chunks (128 kbit/s), 40 pushes and a flush, then chunks of 5 frames:
+     equal to the one-shot decode through kernels A and B, three launches
+     a push, push time p50 under the 24 ms frame (and its max), the
+     emitted-bit lag; kernels A and B against their plain versions on the
+     last push; the plain session on the CPU equal on 2 streams;
+ 16. host ingest (tools.ingest): libvitio.so built from native/vitio.cpp
+     and equal to its numpy fall-backs, a frame ring fed by 4 threads, and
      utils.pipeline.decode_pipelined over 8 packed 16384 x 3072 batches
      through acs_cuda.decode at depth 1 and 2, equal to one call at a
      time, timed in turns with one pageable call at a time, eight runs
@@ -111,11 +112,19 @@ Phases (each raises on failure, so the exit code is non-zero):
      2 ranks, bit-equal to phase 8's one-process output. Kernels A and B
      must launch in every rank of each path; each path's wall time and
      device part. Then harness.scaling's sweep at 1, 2 and 4 ranks of
-     4096 frames of 3072 bits each, with its envelope (a record).
+     4096 frames of 3072 bits each, with its envelope (a record);
+ 18. entry points and evidence tools: viterbi_tpu_torch.entry.entry()
+     (kernels A and B, equal to golden and to its plain form on the CPU),
+     entry.dryrun_multichip(4) on cuda:0 (kernels A and B launched in every
+     path of every rank), tools.parity --quick (twelve sections, 0
+     mismatches, kernels A to D launched) and tools.overlap_sweep at 0 dB,
+     seed 0, overlaps 24 and 96 (the plain form equal to
+     OVERLAP_SWEEP.json's cells, the kernel form equal to the plain form
+     at its effective overlap).
 Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
 before it lists the eight kernels as JSON, each with its launches on its
-path (A, B and C also by path, phases 13-17 included), its time beside
+path (A to D also by path, phases 13-18 included), its time beside
 its plain version's, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its integer operations (the
 shortest sequence that computes the step; an add feeding a min counts as
@@ -172,7 +181,6 @@ TB_GOLDEN = 12          # of them held against the golden model
 # 6144 folded frames each, then a block whose overlap the layout rounds
 # (480 bits: checkpoint 18, overlap 132)
 STREAM_CELLS = ((64, 96, 3072), (256, 24, 3072), (256, 16, 480))
-STREAM_WHOLE = 4        # streams held against the whole-stream decode
 SESSION_STREAMS = 64    # phase 15: 128 kbit/s streams of FB_MAIN-bit chunks
 SESSION_PUSHES = 40
 SESSION_FRAMES = 5      # frames a chunk in the second run
@@ -1061,95 +1069,9 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
 # --- phases 13-16: beyond one frame ----------------------------------------
 
 
-@contextlib.contextmanager
-def recorded(module, name):
-    """Record the calls of ``module.name`` made inside the block as
-    (arguments, keyword arguments, result); the function runs as before,
-    and a wrapper's launch count goes on counting."""
-    fn, calls = getattr(module, name), []
-
-    def rec(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        calls.append((args, kwargs, out))
-        return out
-
-    counts = hasattr(fn, "launches")
-    if counts:
-        rec.launches = fn.launches
-    setattr(module, name, rec)
-    try:
-        yield calls
-    finally:
-        setattr(module, name, fn)
-        if counts:
-            fn.launches = rec.launches
-
-
 def parts_text(parts: dict) -> str:
     """Device ms of a call's parts, each timed alone."""
     return ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + " ms alone"
-
-
-def zero_launches() -> None:
-    from viterbi_tpu_torch.ops import acs_cuda
-    from viterbi_tpu_torch.ops import traceback as tb
-    for fn in (acs_cuda.forward_regs, acs_cuda.forward, tb.tb_walk):
-        fn.launches = 0
-
-
-def new_launches() -> dict:
-    """Launches of kernels A, C and B since ``zero_launches``."""
-    from viterbi_tpu_torch.ops import acs_cuda
-    from viterbi_tpu_torch.ops import traceback as tb
-    return {"acs_regs": acs_cuda.forward_regs.launches,
-            "acs_words": acs_cuda.forward.launches,
-            "tb_walk": tb.tb_walk.launches}
-
-
-def card_hard(bits, tailbiting: bool):
-    """Hard symbols made on the card from int bits [B, n]: terminated (n +
-    6 steps, a zero tail; ``channel.encode_batch``) or tail-biting (n
-    steps, the register preloaded with the last six bits;
-    ``golden.encode_tailbiting``). Returns uint8 [B, 4 * steps]."""
-    import torch
-    from viterbi_tpu_torch import constants as C
-    from viterbi_tpu_torch.harness import channel
-    b = bits.to(torch.int32)
-    B, n = b.shape
-    if tailbiting:
-        ext, steps = torch.cat([b[:, -C.TAIL_BITS:], b], dim=1), n
-    else:
-        z = torch.zeros((B, C.TAIL_BITS), dtype=torch.int32, device=b.device)
-        ext, steps = torch.cat([z, b, z], dim=1), n + C.TAIL_BITS
-    sr = torch.zeros((B, steps), dtype=torch.int32, device=b.device)
-    for k in range(C.K):      # register bit k holds the bit k steps back
-        sr |= ext[:, C.TAIL_BITS - k: C.TAIL_BITS - k + steps] << k
-    parity = torch.as_tensor(channel._PARITY7, device=b.device)
-    return torch.stack([parity[(sr & p).long()] for p in C.POLYS],
-                       dim=2).reshape(B, C.RATE * steps)
-
-
-def card_symbols(bits, tailbiting: bool, gen):
-    """``card_hard``'s symbols through the harness channel's AWGN at
-    EBN0_DB, on the card: int32 [B, 4 * steps] soft symbols."""
-    import torch
-    from viterbi_tpu_torch.harness import channel
-    hard = card_hard(bits, tailbiting)
-    amp = channel.noise_amplitude(EBN0_DB)
-    soft = torch.randn(hard.shape, generator=gen, device=hard.device)
-    soft += torch.where(hard != 0, amp, -amp)
-    del hard
-    soft = (channel.OFFSET + channel.GAIN * soft).clamp_(0, channel.CLIP)
-    return soft.to(torch.int32)
-
-
-def bit_errors(out, bits) -> int:
-    """Decoded bytes on the card against the bits they should carry."""
-    import torch
-    from viterbi_tpu_torch.ops import traceback as tb
-    pop = torch.tensor([bin(i).count("1") for i in range(256)],
-                       device=out.device)
-    return int(pop[(out ^ tb.packbits_msb(bits)).long()].sum())
 
 
 def tailbiting_phase(dev, tag, check) -> dict:
@@ -1161,25 +1083,27 @@ def tailbiting_phase(dev, tag, check) -> dict:
     from viterbi_tpu_torch.harness import channel
     from viterbi_tpu_torch.ops import acs_cuda, tailbiting
     from viterbi_tpu_torch.ops import traceback as tb
+    from viterbi_tpu_torch.tools import _record
     fb, wrap = FB_MAIN, TB_WRAP
     gen = torch.Generator(device=dev).manual_seed(13)
     bits = torch.randint(0, 2, (TB_FRAMES, fb), generator=gen, device=dev)
-    syms = card_symbols(bits, True, gen)
+    syms = channel.soft_on_device(bits, True, gen)
     two = bits[:2].cpu().numpy().astype(np.uint8)
-    hard = card_hard(bits[:2], True).cpu().numpy()
+    hard = channel.hard_on_device(bits[:2], True).cpu().numpy()
     assert all(np.array_equal(hard[i], golden.encode_tailbiting(two[i]))
                for i in range(2)), "the card's tail-biting encoder"
-    assert np.array_equal(card_hard(bits[:2], False).cpu().numpy(),
+    assert np.array_equal(channel.hard_on_device(bits[:2], False).cpu()
+                          .numpy(),
                           channel.encode_batch(two)), "the card's encoder"
-    zero_launches()
+    _record.zero_launches()
     out = tailbiting.decode_tailbiting(syms, fb, wrap)
     torch.cuda.synchronize()
-    launches = new_launches()
+    launches = _record.launches()
     print(f"tail-biting launches: {launches}")
-    assert launches == {"acs_regs": 1, "acs_words": 1, "tb_walk": 1}, \
-        launches
+    assert launches == {"acs_regs": 1, "acs_words": 1, "tb_walk": 1,
+                        "tb_words": 0}, launches
     assert out.device == syms.device and out.shape == (TB_FRAMES, fb // 8)
-    nerr = bit_errors(out, bits)
+    nerr = channel.bit_errors_on_device(out, bits)
     assert nerr < TB_FRAMES * fb * 1e-3, f"{nerr} bit errors at 3 dB"
     t0 = time.perf_counter()
     plain = tailbiting.decode_tailbiting(syms, fb, wrap, use_kernels=False)
@@ -1244,7 +1168,7 @@ def tailbiting_phase(dev, tag, check) -> dict:
     for sfb, swrap, batch in ((8, 8, B_CHECK), (32, 32, B_CHECK),
                               (9216, 96, 64)):
         sbits = torch.randint(0, 2, (batch, sfb), generator=gen, device=dev)
-        s = card_symbols(sbits, True, gen)
+        s = channel.soft_on_device(sbits, True, gen)
         got = tailbiting.decode_tailbiting(s, sfb, swrap)
         host = s[:2].cpu().numpy()
         assert np.array_equal(got[:2].cpu().numpy(), np.stack(
@@ -1266,166 +1190,90 @@ def tailbiting_phase(dev, tag, check) -> dict:
 
 
 def streaming_phase(dev, tag, check, fused_gsym) -> dict:
-    """Phase 14: one-card block-overlap streaming at the shapes of
-    STREAM_TPU.json; returns the launches of the first cell's call."""
-    import torch
-    from viterbi_tpu_torch import constants as C
+    """Phase 14: one-card block-overlap streaming (``tools.stream.cell``)
+    at the shapes of STREAM_TPU.json; returns the launches of the first
+    cell's call."""
     from viterbi_tpu_torch.ops import acs_cuda
     from viterbi_tpu_torch.ops import traceback as tb
-    from viterbi_tpu_torch.parallel import streaming
+    from viterbi_tpu_torch.tools import stream
     first = None
     for streams, n_blocks, blk in STREAM_CELLS:
         sb = n_blocks * blk
-        gen = torch.Generator(device=dev).manual_seed(streams + n_blocks)
-        bits = torch.randint(0, 2, (streams, sb), generator=gen, device=dev)
-        syms = card_symbols(bits, False, gen)
-        data, tail = syms[:, :4 * sb], syms[:, 4 * sb:]
-        plan = streaming._plan_block_layout(blk, None, None, True)
-        dec = streaming.make_local_stream_decoder(sb, n_blocks)
-        zero_launches()
-        with recorded(acs_cuda, "forward_regs") as fwd, \
-                recorded(tb, "chainback_regs_cuda_anchored") as walk:
-            out = dec(data, tail)
-        torch.cuda.synchronize()
-        launches = new_launches()
-        assert launches == {"acs_regs": 2, "acs_words": 0, "tb_walk": 1}, \
-            launches
-        first = first or launches
-        assert out.shape == (streams, sb // 8)
-        plain = streaming.make_local_stream_decoder(
-            sb, n_blocks, use_kernels=False)(data, tail)
-        assert torch.equal(out, plain), "streaming kernels != plain"
-        del plain
-        whole = acs_cuda.decode(syms[:STREAM_WHOLE], sb)
-        assert torch.equal(out[:STREAM_WHOLE], whole), \
-            "streaming != the whole-stream decode through kernels A and B"
-        nerr = bit_errors(out, bits)
-        # kernels A and B against their plain versions on the call's own
-        # inputs; kernel B in every form, anchored below the top
-        for args, kw, (regs, metrics) in fwd:
-            r_p, m_p = acs_cuda.forward_regs_plain(*args, **kw)
-            check("acs_regs", regs, r_p, f"streaming {streams} x {sb}")
-            check("acs_regs", metrics, m_p, f"streaming {streams} x {sb}")
-        (regs, k, state, emit, ckpt), _, got = walk[0]
-        assert bool((k < regs.shape[0] - 1).any()), "no interior anchor"
-        want_rs = tb.tb_walk_plain(regs, ckpt, ckpt, state, k)
-        for segments in WALK_FORMS:
-            check("tb_walk", tb.tb_walk(regs, ckpt, ckpt, state, k,
-                                        segments=segments), want_rs,
-                  f"streaming walk {streams} x {sb}, segments={segments}")
-        check("tb_walk", got, tb._regs_bytes(
-            want_rs, emit, ckpt, ckpt, regs.shape[0] * ckpt - emit),
-            f"streaming walk bytes {streams} x {sb}")
-        (wa, wkw, _), (fa, fkw, _) = fwd
-        wargs = walk[0][0]
-        parts = {
-            "packing": cuda_ms(lambda: acs_cuda.pack_symbols(data, sb), 5)[0],
-            "A warm-up": cuda_ms(lambda: acs_cuda.forward_regs(*wa, **wkw),
-                                 5)[0],
-            "A full pass": cuda_ms(lambda: acs_cuda.forward_regs(*fa, **fkw),
-                                   5)[0],
-            "B": cuda_ms(lambda: tb.chainback_regs_cuda_anchored(*wargs),
-                         5)[0]}
-        del fwd, walk, regs, want_rs, wa, fa, wargs
-        ms, _ = cuda_ms(lambda: dec(data, tail), 5)
-        nsym = streams * C.RATE * sb
+
+        def hold(fwd, walk):
+            """Kernels A and B against their plain versions on the call's
+            own inputs; kernel B in every form, anchored below the top."""
+            for args, kw, (regs, metrics) in fwd:
+                r_p, m_p = acs_cuda.forward_regs_plain(*args, **kw)
+                check("acs_regs", regs, r_p, f"streaming {streams} x {sb}")
+                check("acs_regs", metrics, m_p,
+                      f"streaming {streams} x {sb}")
+            (regs, k, state, emit, ckpt), _, got = walk[0]
+            assert bool((k < regs.shape[0] - 1).any()), "no interior anchor"
+            want_rs = tb.tb_walk_plain(regs, ckpt, ckpt, state, k)
+            for segments in WALK_FORMS:
+                check("tb_walk", tb.tb_walk(regs, ckpt, ckpt, state, k,
+                                            segments=segments), want_rs,
+                      f"streaming walk {streams} x {sb}, "
+                      f"segments={segments}")
+            check("tb_walk", got, tb._regs_bytes(
+                want_rs, emit, ckpt, ckpt, regs.shape[0] * ckpt - emit),
+                f"streaming walk bytes {streams} x {sb}")
+
+        rec = stream.cell(dev, streams, n_blocks, blk, streams + n_blocks,
+                          hold=hold)
+        assert rec["ok"], {k: rec[k] for k in (
+            "launches", "equal_plain", "equal_whole")}
+        first = first or rec["launches"]
         print(f"{tag} streaming {streams} streams x {sb} bits in "
               f"{n_blocks} blocks of {blk} ({streams * n_blocks} folded "
-              f"frames; overlap, warm-up, ckpt {plan}): {ms:.3f} ms "
-              f"resident ({parts_text(parts)}), {nsym / ms / 1e6:.1f} "
-              f"Gsym/s ({fused_gsym:.1f} "
-              f"for cuda_fused's kernels at {B_MAIN} x {FB_MAIN}); "
-              f"{nerr} bit errors; equal to the plain path on the card "
-              f"and, on {STREAM_WHOLE} streams, to the whole-stream decode")
-        del syms, data, tail, out, whole
+              f"frames; layout {rec['layout']}): {rec['ms']:.3f} ms "
+              f"resident ({parts_text(rec['parts_ms'])}), "
+              f"{rec['gsym_s']:.1f} Gsym/s ({fused_gsym:.1f} for "
+              f"cuda_fused's kernels at {B_MAIN} x {FB_MAIN}); "
+              f"{rec['bit_errors']} bit errors; equal to the plain path on "
+              f"the card and, on {stream.WHOLE_ROWS} streams, to the "
+              f"whole-stream decode")
     return first
 
 
 def session_phase(dev, tag, check) -> dict:
-    """Phase 15: StreamSession on 128 kbit/s streams; returns the
-    launches of one push."""
-    import torch
+    """Phase 15: StreamSession on 128 kbit/s streams (``tools.session``);
+    returns the launches of one push."""
     from viterbi_tpu_torch.ops import acs_cuda
     from viterbi_tpu_torch.ops import traceback as tb
     from viterbi_tpu_torch.parallel import StreamSession
-    B, chunk, n = SESSION_STREAMS, FB_MAIN, SESSION_PUSHES
-    sb = n * chunk
-    gen = torch.Generator(device=dev).manual_seed(15)
-    bits = torch.randint(0, 2, (B, sb), generator=gen, device=dev)
-    dsyms = card_symbols(bits, False, gen)
-    whole = acs_cuda.decode(dsyms, sb).cpu().numpy()
-    syms = dsyms.to(torch.uint8).cpu().numpy()     # chunks arrive as bytes
-    data, tail = syms[:, :4 * sb], syms[:, 4 * sb:]
-    step = 4 * chunk
+    from viterbi_tpu_torch.tools import session
+    B, n = SESSION_STREAMS, SESSION_PUSHES
+    data, tail, whole = session.stream(dev, B, n, FB_MAIN, seed=15)
 
-    def run(sess, frames, chunks):
-        """Push chunks number ``chunks`` of ``frames`` frames each."""
-        outs, secs = [], []
-        for i in chunks:
-            t0 = time.perf_counter()
-            outs.append(sess.push(data[:, i * step * frames:
-                                       (i + 1) * step * frames]))
-            secs.append(time.perf_counter() - t0)
-        assert all(o.shape[1] > 0 for o in outs), "a push emitted nothing"
-        return outs, secs
+    def hold(fwd, walk):
+        """Kernels A and B against their plain versions on the last
+        push."""
+        for args, kw, (regs, metrics) in fwd:
+            r_p, m_p = acs_cuda.forward_regs_plain(*args, **kw)
+            check("acs_regs", regs, r_p, "session push")
+            check("acs_regs", metrics, m_p, "session push metrics")
+        (regs, fbits, ckpt, gap), kw, (rs, got) = walk[0]
+        want_rs = tb.tb_walk_plain(regs, ckpt, gap, kw.get("anchor"))
+        check("tb_walk", rs, want_rs, "session push walk")
+        check("tb_walk", got, tb._regs_bytes(want_rs, fbits, ckpt, gap,
+                                             kw["tail"]),
+              "session push bytes")
 
-    def push_parts(fwd, walk):
-        """Device ms of a recorded push's three launches, each alone."""
-        (a, akw, _), (b, bkw, _) = fwd
-        wargs, wkw, _ = walk[0]
-        return {"A emit": cuda_ms(lambda: acs_cuda.forward_regs(*a, **akw),
-                                  5)[0],
-                "A look-ahead": cuda_ms(
-                    lambda: acs_cuda.forward_regs(*b, **bkw), 5)[0],
-                "B": cuda_ms(lambda: tb.tb_walk_bytes(*wargs, **wkw), 5)[0]}
-
-    sess = StreamSession(B)
-    assert sess.use_kernels and sess.device.type == dev.type
-    zero_launches()
-    outs, secs = run(sess, 1, range(n - 1))
-    launches = new_launches()
-    per_push = {k: v / (n - 1) for k, v in launches.items()}
-    assert per_push == {"acs_regs": 2, "acs_words": 0, "tb_walk": 1}, \
-        per_push
-    with recorded(acs_cuda, "forward_regs") as fwd, \
-            recorded(tb, "tb_walk_bytes") as walk:
-        outs += run(sess, 1, [n - 1])[0]
-    t0 = time.perf_counter()
-    outs.append(sess.flush(tail))
-    flush_s = time.perf_counter() - t0
-    got = np.concatenate(outs, axis=1)
-    assert np.array_equal(got, whole), "session != the one-shot decode"
-    # kernels A and B against their plain versions on the last push
-    for args, kw, (regs, metrics) in fwd:
-        r_p, m_p = acs_cuda.forward_regs_plain(*args, **kw)
-        check("acs_regs", regs, r_p, "session push")
-        check("acs_regs", metrics, m_p, "session push metrics")
-    (regs, fbits, ckpt, gap), kw, (rs, got_bytes) = walk[0]
-    want_rs = tb.tb_walk_plain(regs, ckpt, gap, kw.get("anchor"))
-    check("tb_walk", rs, want_rs, "session push walk")
-    check("tb_walk", got_bytes, tb._regs_bytes(want_rs, fbits, ckpt, gap,
-                                               kw["tail"]),
-          "session push bytes")
-    parts = push_parts(fwd, walk)
-    del fwd, walk, regs, want_rs, rs
-    ms = [1e3 * s for s in secs[1:]]
-    p50, worst = statistics.median(ms), max(ms)
-    assert p50 < FRAME_MS, f"push p50 {p50:.2f} ms over the {FRAME_MS} ms frame"
-    # chunks of five frames, the same stream
-    sess5, n5 = StreamSession(B), n // SESSION_FRAMES
-    outs5, secs5 = run(sess5, SESSION_FRAMES, range(n5 - 1))
-    with recorded(acs_cuda, "forward_regs") as fwd, \
-            recorded(tb, "tb_walk_bytes") as walk:
-        o, s = run(sess5, SESSION_FRAMES, [n5 - 1])
-    outs5, secs5 = outs5 + o, secs5 + s
-    parts5 = push_parts(fwd, walk)
-    del fwd, walk
-    outs5.append(sess5.flush(tail))
-    assert np.array_equal(np.concatenate(outs5, axis=1), whole), \
-        "session (five-frame chunks) != the one-shot decode"
+    one = session.chunks(dev, data, tail, whole, 1, FB_MAIN, hold=hold)
+    five = session.chunks(dev, data, tail, whole, SESSION_FRAMES, FB_MAIN,
+                          hold=hold)
+    for rec in (one, five):
+        assert rec["ok"], {k: rec.get(k) for k in (
+            "match_one_shot", "none_held_back", "launches_per_push")}
+        assert rec["every_push_emitted"], "a push emitted nothing"
+    assert one["push_ms_p50"] < FRAME_MS, \
+        f"push p50 {one['push_ms_p50']:.2f} ms over the {FRAME_MS} ms frame"
     # the plain session on the CPU against the kernel session, a few
     # streams and pushes
     ps, pn = SESSION_PLAIN
+    step = 4 * FB_MAIN
     pdata = np.ascontiguousarray(data[:ps, :pn * step])
     ptail = np.ascontiguousarray(tail[:ps])
     sides = []
@@ -1436,114 +1284,53 @@ def session_phase(dev, tag, check) -> dict:
         o.append(sess_p.flush(ptail))
         sides.append(np.concatenate(o, axis=1))
     assert np.array_equal(sides[0], sides[1]), "session kernels != plain"
-    print(f"{tag} session {B} streams at {chunk * 1000 // 24000} kbit/s, "
-          f"{chunk}-bit chunks: {n} pushes, push {p50:.3f} ms p50, "
-          f"{worst:.3f} ms max (push {ms.index(worst) + 1}; the first "
-          f"{1e3 * secs[0]:.3f} ms) against "
-          f"{FRAME_MS} ms a frame (the last push's {parts_text(parts)}); "
-          f"flush {1e3 * flush_s:.3f} ms; "
-          f"{per_push} launches a push; equal to the one-shot decode "
+    per_push = {k: int(v) for k, v in one["launches_per_push"].items()}
+    print(f"{tag} session {B} streams at {FB_MAIN * 1000 // 24000} kbit/s, "
+          f"{FB_MAIN}-bit chunks: {n} pushes, push "
+          f"{one['push_ms_p50']:.3f} ms p50, {one['push_ms_max']:.3f} ms "
+          f"max (the first {one['first_push_ms']:.3f} ms) against "
+          f"{FRAME_MS} ms a frame (the last push's "
+          f"{parts_text(one['last_push_parts_ms'])}); flush "
+          f"{one['flush_ms']:.3f} ms; emit lag {one['emit_lag_bits_max']} "
+          f"bits; {per_push} launches a push; equal to the one-shot decode "
           f"through kernels A and B, and with chunks of {SESSION_FRAMES} "
-          f"frames (push {1e3 * statistics.median(secs5):.3f} ms p50, "
-          f"{1e3 * max(secs5[1:]):.3f} max; the last push's "
-          f"{parts_text(parts5)}); "
-          f"the plain session on the CPU equal on {ps} streams x {pn} "
-          f"pushes")
-    return {k: int(v) for k, v in per_push.items()}
+          f"frames (push {five['push_ms_p50']:.3f} ms p50, "
+          f"{five['push_ms_max']:.3f} max; the last push's "
+          f"{parts_text(five['last_push_parts_ms'])}); the plain session on "
+          f"the CPU equal on {ps} streams x {pn} pushes")
+    return per_push
 
 
 def ingest_phase(dev, tag, packed) -> dict:
-    """Phase 16: the native host library and the pipelined feed; returns
-    the launches of the pipelined run."""
-    import threading
+    """Phase 16: the native host library and the pipelined feed
+    (``tools.ingest``); returns the launches of the pipelined run."""
     import torch
     from viterbi_tpu_torch.ops import acs_cuda
-    from viterbi_tpu_torch.utils import native, pipeline
-    assert native.have_native(), "libvitio.so did not build"
-    rng = np.random.default_rng(16)
-    bits = rng.integers(0, 2, FB_MAIN, dtype=np.uint8)
-    assert np.array_equal(native.encode(bits), native.encode_plain(bits))
-    assert np.array_equal(native.pack_bits(bits),
-                          native.pack_bits_plain(bits))
-    mask = rng.integers(0, 2, 32, dtype=np.uint8)
-    syms = rng.integers(0, 256, 4 * FB_MAIN, dtype=np.uint32)
-    assert np.array_equal(native.depuncture(syms, mask, 6 * FB_MAIN),
-                          native.depuncture_plain(syms, mask, 6 * FB_MAIN))
-    p = rng.integers(0, 256, 16 * 120, dtype=np.uint8)
-    assert np.array_equal(native.rs_deinterleave(p, 16),
-                          native.rs_deinterleave_plain(p, 16))
-    # a frame ring fed by four threads, drained in batches
+    from viterbi_tpu_torch.tools import ingest
+    lib = ingest.native_checks()
     frames = packed[:RING_FRAMES].view(np.uint32)
-    ring = native.FrameRing(capacity=1024, frame_len=frames.shape[1])
-    popped, failed = 0, []
-
-    def produce(first):
-        try:
-            for i in range(first, len(frames), 4):
-                assert ring.push(frames[i], tag=i), "ring closed"
-        except BaseException as e:     # reported below; the ring closes
-            failed.append(e)           # so that the consumer stops
-            ring.close()
-            raise
-
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=produce, args=(k,)) for k in range(4)]
-    for t in threads:
-        t.start()
-    while popped < len(frames):
-        got, tags = ring.pop_batch(256, min_batch=1)
-        if got.shape[0] == 0:
-            break
-        assert np.array_equal(got, frames[tags]), "ring frames != pushed"
-        popped += got.shape[0]
-    for t in threads:
-        t.join(timeout=60)
-    ring_s = time.perf_counter() - t0
-    ring.close()
-    assert not failed and not any(t.is_alive() for t in threads), failed
-    assert popped == len(frames), f"{popped} of {len(frames)} frames"
-    # decode_pipelined over packed batches against one call at a time
+    ring_s = ingest.ring(frames, len(frames))
     batches = [np.roll(packed, k * (B_MAIN // INGEST_BATCHES), axis=0)
                for k in range(INGEST_BATCHES)]
-
-    def decode(t):
-        return acs_cuda.decode(t, FB_MAIN, packed="bt")
-
-    def serial_run():
-        return [decode(torch.from_numpy(b).to(dev)).cpu().numpy()
-                for b in batches]
-
-    serial = serial_run()
-    # pin the two staging buffers once, as a feed that runs on does
-    list(pipeline.decode_pipelined(batches[:2], decode, depth=2))
-    secs = {"serial": [], 1: [], 2: []}
-    for side in ("serial", 1, 2, 2, 1, "serial") * INGEST_ROUNDS:  # turns
-        zero_launches()
-        t0 = time.perf_counter()
-        got = serial_run() if side == "serial" else list(
-            pipeline.decode_pipelined(batches, decode, depth=side))
-        secs[side].append(1e3 * (time.perf_counter() - t0))
-        assert len(got) == len(serial) and all(
-            np.array_equal(g, s) for g, s in zip(got, serial)), \
-            f"{side} != one call at a time"
-        if side != "serial":
-            launches = new_launches()
-            assert launches == {"acs_regs": INGEST_BATCHES, "acs_words": 0,
-                                "tb_walk": INGEST_BATCHES}, launches
+    secs, launches = ingest.turns(
+        batches, lambda t: acs_cuda.decode(t, FB_MAIN, packed="bt"), dev,
+        INGEST_ROUNDS)
+    assert launches == {"acs_regs": INGEST_BATCHES, "acs_words": 0,
+                        "tb_walk": INGEST_BATCHES, "tb_words": 0}, launches
     med = {k: statistics.median(v) for k, v in secs.items()}
     spread = {k: f"{med[k]:.1f} ({min(v):.1f}-{max(v):.1f})"
               for k, v in secs.items()}
     mb = packed.nbytes / 1e6
-    print(f"{tag} ingest: native host lib built ({native.library_path()}), "
-          f"equal to its numpy fall-backs; a frame ring fed by 4 threads "
-          f"moved {len(frames)} frames of {frames.shape[1]} words in "
-          f"{1e3 * ring_s:.1f} ms; {INGEST_BATCHES} packed batches of "
-          f"{B_MAIN} x {FB_MAIN} ({mb:.0f} MB each) through acs_cuda.decode, "
-          f"ms for all, median (range) of {len(secs[2])} runs each in "
-          f"turns: one pageable call at a time {spread['serial']}, "
-          f"pipelined depth 1 {spread[1]}, depth 2 {spread[2]} (medians: "
-          f"depth 2 {med[1] / med[2]:.2f}x depth 1, "
-          f"{med['serial'] / med[2]:.2f}x serial; host threads "
+    print(f"{tag} ingest: native host lib built ({lib}), equal to its numpy "
+          f"fall-backs; a frame ring fed by 4 threads moved {len(frames)} "
+          f"frames of {frames.shape[1]} words in {1e3 * ring_s:.1f} ms; "
+          f"{INGEST_BATCHES} packed batches of {B_MAIN} x {FB_MAIN} "
+          f"({mb:.0f} MB each) through acs_cuda.decode, ms for all, median "
+          f"(range) of {len(secs['depth 2'])} runs each in turns: one "
+          f"pageable call at a time {spread['serial']}, pipelined depth 1 "
+          f"{spread['depth 1']}, depth 2 {spread['depth 2']} (medians: "
+          f"depth 2 {med['depth 1'] / med['depth 2']:.2f}x depth 1, "
+          f"{med['serial'] / med['depth 2']:.2f}x serial; host threads "
           f"{torch.get_num_threads()}; every run "
           f"{ {k: [round(x, 1) for x in v] for k, v in secs.items()} }), "
           f"all equal")
@@ -1573,13 +1360,15 @@ def timed_path(fn, record=(), runs: int = 3):
     wall seconds of ``runs`` more calls, each ended by a synchronise, and
     the first call's calls of each ``(module, name)`` in ``record``)."""
     import torch
+    from viterbi_tpu_torch.tools import _record
     with contextlib.ExitStack() as stack:
-        calls = [stack.enter_context(recorded(*r)) for r in record]
-        zero_launches()
+        calls = [stack.enter_context(_record.recorded(*r))
+                 for r in record]
+        _record.zero_launches()
         out = fn()
         torch.cuda.synchronize()
-        launches = new_launches()
-    del launches["acs_words"]
+        launches = _record.launches()
+    del launches["acs_words"], launches["tb_words"]
     for name, count in launches.items():
         assert count > 0, f"a rank never launched {name}: {launches}"
     walls = []
@@ -1649,6 +1438,7 @@ def several_rank(rank, world_size, store, data_dir):
     from viterbi_tpu_torch.ops import traceback as tb
     from viterbi_tpu_torch.parallel import batch, mesh, streaming
     from viterbi_tpu_torch.runtime import dispatch
+    from viterbi_tpu_torch.tools import _record
     torch.cuda.set_device(0)
     viterbi_tpu_torch.initialize()
     variant = dispatch.VARIANTS[dispatch.state().variant]
@@ -1728,8 +1518,9 @@ def several_rank(rank, world_size, store, data_dir):
     if m is not None:
         hsyms = torch.from_numpy(np.array(load("hold_syms"))).cuda()
         sb = n_seq * blk
-        with recorded(acs_cuda, "forward_regs") as fwd, \
-                recorded(tb, "chainback_regs_cuda_anchored") as walk:
+        with _record.recorded(acs_cuda, "forward_regs") as fwd, \
+                _record.recorded(tb, "chainback_regs_cuda_anchored") \
+                as walk:
             out = streaming.decode_stream(hsyms, sb, m)
         assert torch.equal(out, streaming.make_local_stream_decoder(
             sb, n_seq)(hsyms[:, :4 * sb], hsyms[:, 4 * sb:]))
@@ -1759,7 +1550,7 @@ def several_phase(dev, tag, syms, out, expect8, sf) -> dict:
     launches a rank of each path made (for the kernels line) and the
     kernels' max errors in the ranks."""
     import torch
-    from viterbi_tpu_torch.harness import scaling
+    from viterbi_tpu_torch.harness import channel, scaling
     from viterbi_tpu_torch.parallel import distributed, streaming
     d = ROOT / "build" / "chip_smoke" / "phase17"
     d.mkdir(parents=True, exist_ok=True)
@@ -1771,17 +1562,16 @@ def several_phase(dev, tag, syms, out, expect8, sf) -> dict:
     gen = torch.Generator(device=dev).manual_seed(17)
     bits = torch.randint(0, 2, (RING_STREAMS, RING_BITS), generator=gen,
                          device=dev)
-    rsyms = card_symbols(bits, False, gen)
+    rsyms = channel.soft_on_device(bits, False, gen)
     data, tail = rsyms[:, :4 * RING_BITS], rsyms[:, 4 * RING_BITS:]
     for n_seq in sorted({n for _, n in RING_MESHES}):
         want = streaming.make_local_stream_decoder(RING_BITS, n_seq)(data,
                                                                      tail)
         np.save(d / f"ring_want_{n_seq}.npy", want.cpu().numpy())
-    nerr = bit_errors(want, bits)
+    nerr = channel.bit_errors_on_device(want, bits)
     np.save(d / "ring_syms.npy", rsyms.to(torch.uint8).cpu().numpy())
     del bits, rsyms, data, tail, want
     streams, n_seq, blk = RING_HOLD
-    from viterbi_tpu_torch.harness import channel
     np.save(d / "hold_syms.npy",
             channel.make_frames(streams, n_seq * blk, seed=17)[1])
     sf_syms, sf_audio, sf_errors = sf
@@ -1834,6 +1624,78 @@ def several_phase(dev, tag, syms, out, expect8, sf) -> dict:
               f"{r['predicted_envelope']}")
     print(f"scaling sweep: {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "errs": errs}
+
+
+# --- phase 18: the entry points and the evidence tools ----------------------
+
+
+def tools_phase(dev, tag) -> dict:
+    """Phase 18: ``entry()``, ``dryrun_multichip(RANKS)`` on this card, the
+    parity record's quick run and a corner of the overlap sweep, each
+    through the port's entry points; returns each one's launches (the
+    dryrun: its first rank's, all of its paths together)."""
+    import torch
+    from viterbi_tpu_torch import entry, golden
+    from viterbi_tpu_torch.tools import _record, overlap_sweep, parity
+    paths, secs = {}, {}
+    # entry(): kernels A and B, equal to golden and to its plain form
+    t0 = time.perf_counter()
+    fn, (syms,) = entry.entry()
+    _record.zero_launches()
+    out = fn(syms)
+    torch.cuda.synchronize()
+    paths["entry"] = _record.launches()
+    assert not _record.missing(paths["entry"], ("acs_regs", "tb_walk")), \
+        paths["entry"]
+    host = syms.cpu()
+    assert np.array_equal(out.cpu().numpy(), golden.deconvolve_many(
+        entry.FRAMEBITS, host.numpy())), "entry() != golden"
+    pfn, (psyms,) = entry.entry(device="cpu")
+    assert torch.equal(psyms, host) and torch.equal(pfn(psyms), out.cpu()), \
+        "entry() != its plain form"
+    secs["entry"] = time.perf_counter() - t0
+    # dryrun_multichip on this card: every rank launches A and B a path
+    t0 = time.perf_counter()
+    ranks = entry.dryrun_multichip(RANKS)
+    for r, res in enumerate(ranks):
+        for path, counts in res["launches"].items():
+            lost = _record.missing(counts, ("acs_regs", "tb_walk"))
+            assert not lost, f"dryrun rank {r}: {path} never launched {lost}"
+    paths["dryrun"] = {k: sum(c[k] for c in ranks[0]["launches"].values())
+                       for k in _record.KERNELS}
+    secs["dryrun"] = time.perf_counter() - t0
+    # the parity record's quick run: A, B, C and D launch, 0 mismatches
+    t0 = time.perf_counter()
+    doc = parity.run(quick=True, device=dev)
+    assert doc["ok"], {k: doc[k] for k in ("mismatches",
+                                            "kernels_not_launched")}
+    paths["parity"] = doc["launches"]
+    secs["parity"] = time.perf_counter() - t0
+    # the overlap sweep at 0 dB, seed 0, overlaps 24 and 96, both forms
+    t0 = time.perf_counter()
+    sweep = overlap_sweep.run(device=dev, seeds=(0,), ebn0s=(0.0,),
+                              overlaps=(24, 96), warmups=())
+    paths["overlap_sweep"] = sweep["launches"]
+    assert sweep["ok"] and sweep["reference_cells_compared"] == 2, \
+        {k: sweep[k] for k in ("reference_cells_compared",
+                               "reference_cells_differing",
+                               "kernel_cells_differing",
+                               "kernels_not_launched")}
+    secs["overlap_sweep"] = time.perf_counter() - t0
+    cells = "; ".join(
+        f"overlap {c['overlap']} (runs as {c['effective_overlap']}, warm-up "
+        f"{c['effective_warmup']}): {c['mismatch_bits']} bits in "
+        f"{c['mismatch_frames']} frames" for c in sweep["kernel_cells"])
+    print(f"{tag} entry points and tools: entry() through kernels A and B "
+          f"equal to golden and to its plain form; dryrun_multichip({RANKS}) "
+          f"on {dev}, kernels A and B in every rank's every path "
+          f"({[sorted(r['launches']) for r in ranks][0]}); parity --quick "
+          f"{len(doc['sections'])} sections, 0 mismatches, launches "
+          f"{doc['launches']}; overlap sweep at 0 dB, seed 0: the plain form "
+          f"equal to OVERLAP_SWEEP.json's cells, the kernel form equal to it "
+          f"at the effective overlap ({cells}); seconds "
+          f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    return paths
 
 
 def main() -> int:
@@ -2247,6 +2109,12 @@ def main() -> int:
     for name, e in several["errs"].items():
         errs[name] = max(errs[name], e)
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 18: the entry points and the evidence tools -------------------
+    t0 = time.perf_counter()
+    rung("cuda_fused")
+    paths.update(tools_phase(dev, tag))
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
     csrc = "viterbi_tpu_torch/csrc/"
     meta = {

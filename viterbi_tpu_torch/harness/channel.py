@@ -9,11 +9,17 @@ same numpy generator is drawn in the same order (all data bits first,
 then each frame's noise in frame order). Only the encoder differs: it is
 vectorized over frames and steps, since the golden per-bit loop takes
 minutes at production batch sizes.
+
+``hard_on_device``, ``soft_on_device`` and ``bit_errors_on_device`` do the
+same on a card for batches too large to make on the host in time: the
+same encoder and channel, drawn from a torch generator (so not the numpy
+draws of ``make_frames``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import constants as C
 from .. import golden
@@ -133,3 +139,46 @@ def ber_fer(decoded_bytes: np.ndarray, bits: np.ndarray):
     ber = bit_errs.sum() / (nframes * framebits)
     fer = np.count_nonzero(bit_errs) / nframes
     return float(ber), float(fer), int(bit_errs.sum())
+
+
+def hard_on_device(bits: torch.Tensor, tailbiting: bool = False):
+    """Hard symbols made where int ``bits`` [B, n] lie: terminated (n + 6
+    steps, a zero tail; ``encode_batch``) or tail-biting (n steps, the
+    register preloaded with the last six bits; ``golden.encode_tailbiting``).
+    Returns int [B, 4 * steps] of 0 and 1."""
+    b = bits.to(torch.int32)
+    B, n = b.shape
+    if tailbiting:
+        ext, steps = torch.cat([b[:, -C.TAIL_BITS:], b], dim=1), n
+    else:
+        z = torch.zeros((B, C.TAIL_BITS), dtype=torch.int32, device=b.device)
+        ext, steps = torch.cat([z, b, z], dim=1), n + C.TAIL_BITS
+    sr = torch.zeros((B, steps), dtype=torch.int32, device=b.device)
+    for k in range(C.K):      # register bit k holds the bit k steps back
+        sr |= ext[:, C.TAIL_BITS - k: C.TAIL_BITS - k + steps] << k
+    parity = torch.as_tensor(_PARITY7, device=b.device)
+    return torch.stack([parity[(sr & p).long()] for p in C.POLYS],
+                       dim=2).reshape(B, C.RATE * steps)
+
+
+def soft_on_device(bits: torch.Tensor, tailbiting: bool, gen: torch.Generator,
+                   ebn0_db: float = EBN0_DB) -> torch.Tensor:
+    """``hard_on_device``'s symbols through this channel's AWGN at
+    ``ebn0_db``, the noise drawn from ``gen`` where ``bits`` lie: int32
+    [B, 4 * steps] soft symbols."""
+    hard = hard_on_device(bits, tailbiting)
+    amp = noise_amplitude(ebn0_db)
+    soft = torch.randn(hard.shape, generator=gen, device=hard.device)
+    soft += torch.where(hard != 0, amp, -amp)
+    del hard
+    soft = (OFFSET + GAIN * soft).clamp_(0, CLIP)
+    return soft.to(torch.int32)
+
+
+def bit_errors_on_device(decoded: torch.Tensor, bits: torch.Tensor) -> int:
+    """Bit errors of MSB-first decoded bytes against the int ``bits`` [B,
+    n] they should carry, counted where they lie."""
+    from ..ops import traceback as tb
+    pop = torch.tensor([bin(i).count("1") for i in range(256)],
+                       device=decoded.device)
+    return int(pop[(decoded ^ tb.packbits_msb(bits)).long()].sum())

@@ -1,0 +1,30 @@
+"""The launch counts of kernels A-D. Each wrapper adds one to its
+``.launches`` where it launches its kernel, and nowhere else; a caller
+sets them to 0 before a path and reads them after it, to show that the
+path went through the kernels."""
+
+from __future__ import annotations
+
+from . import acs_cuda
+from . import traceback as tb
+
+#: kernels A-D by their rows' names in chip_smoke.py's kernels line
+KERNELS = {"acs_regs": (acs_cuda, "forward_regs"),
+           "acs_words": (acs_cuda, "forward"),
+           "tb_walk": (tb, "tb_walk"),
+           "tb_words": (tb, "tb_words")}
+
+
+def zero_launches() -> None:
+    for module, name in KERNELS.values():
+        getattr(module, name).launches = 0
+
+
+def launches() -> dict:
+    """Launches of kernels A-D since ``zero_launches``."""
+    return {k: getattr(m, n).launches for k, (m, n) in KERNELS.items()}
+
+
+def missing(counts: dict, names) -> list:
+    """The kernels of ``names`` that ``counts`` shows never launched."""
+    return [k for k in names if not counts.get(k)]

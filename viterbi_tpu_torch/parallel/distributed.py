@@ -34,6 +34,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from ..runtime.placement import strict_device
 from . import mesh as mesh_mod
 
 _initialized = False
@@ -47,22 +48,17 @@ _CLUSTER_ENV = ("TORCHELASTIC_RUN_ID", "MASTER_ADDR")
 
 def local_device(device=None) -> torch.device:
     """This process's device: ``device``, else ``cuda:<LOCAL_RANK>``.
-    Raises where that card does not exist."""
+    Raises where that card does not exist (``placement.strict_device``)."""
     if device is not None:
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"{device} asked for, but there is no card")
-        return device
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "ranks on the CPU")
+        return strict_device(device)
     local = int(os.environ.get("LOCAL_RANK", "0"))
+    dev = strict_device(f"cuda:{local}")
     if local >= torch.cuda.device_count():
         raise RuntimeError(
             f"local rank {local} has no card of its own "
             f"({torch.cuda.device_count()} cards): pass device='cuda:0' to "
             f"share one")
-    return torch.device("cuda", local)
+    return dev
 
 
 def _default_backend(device: torch.device) -> str:

@@ -6,7 +6,9 @@ its device unless the caller names another; a host array goes to the
 card where there is one. ``use_kernels=None`` then takes the
 hand-written kernels on a CUDA tensor and the plain torch path on a CPU
 tensor; ``use_kernels=True`` on the CPU is refused, since there the
-kernels exist only as their plain versions.
+kernels exist only as their plain versions. The entry points of
+``entry.py``, the tools and the ranks of ``parallel.distributed`` take
+``strict_device`` instead: the card, or the CPU only when asked for.
 """
 
 from __future__ import annotations
@@ -20,6 +22,22 @@ def default_device(device=None) -> torch.device:
     if device is not None:
         return torch.device(device)
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def strict_device(device=None) -> torch.device:
+    """The device of a call that must not move to the CPU by itself: the
+    current card, unless the caller names another (``"cpu"``). Raises
+    where a card is asked for, by name or by default, and there is
+    none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device (no card for {dev}): pass "
+                               "device='cpu' (--device cpu) to run on the "
+                               "CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def on_device(symbols, device=None) -> torch.Tensor:
