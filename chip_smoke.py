@@ -48,18 +48,22 @@ Phases (each raises on failure, so the exit code is non-zero):
      them;
   8. superframe path: 2048 DAB+ audio superframes at 128 kbit/s (10240
      frames, 32768 RS codewords) through
-     models.dab.decode_audio_superframes on the card: kernels A and B
+     models.dab.decode_audio_superframes on the card: kernels A, B and I
      must be launched, the audio equal to what was encoded wherever the
      error count is not -1, audio and counts equal to the golden model
      and to the CPU's plain path on subsets, and on the whole batch to
      the same call through plain versions only on the card; kernels A
-     and B against their plain versions on the path's own symbols; rates
-     and the split Viterbi / assembly / RS;
+     and B against their plain versions on the path's own symbols, and
+     kernel I (RS) on its own codewords, the chain's strided uint8 view;
+     rates and the split Viterbi / assembly / RS, RS in at most two
+     device launches;
   9. RS: rs_check_superframe through the API for rs_dims 1, 4, 16, 48,
      clean, corrected and -1 with the partial prefix write, against
-     golden; then probes.rsform: the table and the bitwise form of the
-     field arithmetic at 65536 codewords on three error mixes, equal to
-     each other and timed;
+     golden, kernel I once a call; each call's ms and device launches,
+     and the same with the plain decode in kernel I's place; then
+     probes.rsform: the table and the bitwise form of the field
+     arithmetic and kernel I at 65536 codewords on three error mixes,
+     all three equal and timed;
  10. EEP path: decode_punctured_frames at 128 kbit/s for EEP 3-A and
      2-B, and decode_profile_frames with a four-segment row, against
      golden on a subset and, on the whole batch, against the plain path
@@ -123,8 +127,8 @@ Phases (each raises on failure, so the exit code is non-zero):
      at its effective overlap).
 Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
-before it lists the eight kernels as JSON, each with its launches on its
-path (A to D also by path, phases 13-18 included), its time beside
+before it lists the nine kernels as JSON, each with its launches on its
+path (A to D and I also by path, phases 8-18 included), its time beside
 its plain version's, and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its integer operations (the
 shortest sequence that computes the step; an add feeding a min counts as
@@ -234,6 +238,44 @@ OPS_PER_ROUND_H = 2     # int: two fused add-mins a stream (float: 4 ops)
 OPS_PER_CKPT_B = 6      # address (3), shift, mask, anchor compare
 OPS_PER_BYTE_B = 5      # checkpoint of the byte (2), shift, mask, place
 OPS_PER_BIT_D = 9       # word select, 2 shifts + 2 masks, 2 to place, 2 state
+# Kernel I: the operations the reference's scalar decoder
+# (golden.rs_decode_codeword) needs on this run's codewords, each a step
+# through the tables as csrc/rs_decode.cu takes it (a product of two logs
+# is an add and a lookup). Syndromes: a byte's log lookup, then for each of
+# the ten roots an exponent add, an antilog lookup and an XOR (the
+# exponents i * (119 - j) are the same for every codeword). A codeword
+# whose syndromes are not all zero adds Berlekamp-Massey's ten rounds (per
+# round r: r products of 3 with their XORs, then 11 of x * b(x)'s and 11
+# swapped coefficients, 990 in all) and the Chien search: at each element
+# it visits, up to its deg-lambda-th root, an add, a lookup and an XOR for
+# each nonzero coefficient of lambda past the first. A correctable one
+# adds omega's d(d+1)/2 products of 4 (d = deg lambda) and, at each root
+# past the pad, Forney's d terms of the numerator and the denominator's
+# terms (even i up to min(d, 9)), 3 each, and the value's 5; omega and
+# Forney at their loops' lengths, where the reference skips a zero
+# coefficient's term.
+OPS_RS_SYND_BYTE = 1 + 10 * 3
+OPS_RS_BM = 990
+OPS_RS_TERM = 3
+OPS_RS_PRODUCT = 4
+OPS_RS_VALUE = 5
+
+
+def rs_decoder_ops(blocks) -> int:
+    """The integer operations above on ``blocks`` [..., 120], from what
+    the reference's decoder does on each (ops.rs.decoder_work)."""
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.ops import rs as rs_ops
+    w = rs_ops.decoder_work(blocks)
+    d = w["deg_lambda"]
+    den_terms = (d.clamp(max=9) & ~1) // 2 + 1
+    ops = (w["deg_lambda"].numel() * C.RS_N * OPS_RS_SYND_BYTE
+           + (w["dirty"] * (OPS_RS_BM + OPS_RS_TERM * w["chien"]
+                            * w["terms"])).sum()
+           + (w["correctable"] * OPS_RS_PRODUCT * d * (d + 1) // 2).sum()
+           + (w["forney"] * (OPS_RS_TERM * (d + den_terms)
+                             + OPS_RS_VALUE)).sum())
+    return int(ops)
 
 
 def card_line() -> str:
@@ -632,10 +674,12 @@ def superframe_path(dev, tag, check):
           f"symbols, made in {time.perf_counter() - t0:.1f} s on the host")
     acs_cuda.forward_regs.launches = 0
     tb.tb_walk.launches = 0
+    rs_ops.rs_decode_blocks.launches = 0
     got_audio, got_errors = dab.decode_audio_superframes(syms, SF_KBPS)
     torch.cuda.synchronize()
     launches = {"acs_regs": acs_cuda.forward_regs.launches,
-                "tb_walk": tb.tb_walk.launches}
+                "tb_walk": tb.tb_walk.launches,
+                "rs_decode": rs_ops.rs_decode_blocks.launches}
     print(f"superframe path launches: {launches}")
     for name, count in launches.items():
         assert count > 0, f"the superframe path never launched {name}"
@@ -685,6 +729,30 @@ def superframe_path(dev, tag, check):
     t0 = time.perf_counter()
     hold_path_kernels(dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1),
                       cfg.framebits, check, "superframe path")
+    # kernel I on the path's own codewords: the chain's [B, rs_dims, 120]
+    # view of its superframes, read in place
+    frame_bytes = dab.decode_frames(
+        dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1), cfg.framebits, True)
+    sf_bytes = dab.bytes_to_superframes(
+        frame_bytes.reshape(B_SF, dab.SUPERFRAME_FRAMES, cfg.frame_bytes),
+        cfg)
+    blocks = sf_bytes.reshape(B_SF, C.RS_N, cfg.rs_dims).transpose(1, 2)
+    rs_ms, rs_got = cuda_ms(lambda: rs_ops.rs_decode_blocks(blocks), 20)
+    rs_plain_ms, rs_want = cuda_ms(
+        lambda: rs_ops.rs_decode_blocks_plain(blocks), 3)
+    for g, w, part in zip(rs_got, rs_want, ("count", "corrected")):
+        check("rs_decode", g, w, f"superframe path, {blocks.shape[0]} x "
+              f"{blocks.shape[1]} codewords (view strides "
+              f"{tuple(blocks.stride())}, {blocks.dtype}) {part}")
+    count = rs_got[0].reshape(-1)
+    rs_mix = {"codewords": count.numel(),
+              "dirty": int((count != 0).sum()),
+              "roots": int(count.clamp(min=0).sum()),
+              "uncorrectable": int((count < 0).sum()),
+              "in_bytes": blocks.element_size(),
+              "ops": rs_decoder_ops(blocks)}
+    print(f"superframe path: kernel I bit-identical to its plain version on "
+          f"its {count.numel()} codewords ({rs_mix})")
     plain_a, plain_e = dab.decode_audio_superframes(dsyms, SF_KBPS,
                                                     use_kernels=False)
     assert torch.equal(plain_a, got_audio) and \
@@ -701,29 +769,44 @@ def superframe_path(dev, tag, check):
     flat = dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1)
     vit_ms, frame_bytes = cuda_ms(
         lambda: dab.decode_frames(flat, cfg.framebits, True), 5)
-    asm_ms, blocks = cuda_ms(lambda: dab.bytes_to_superframes(
+    # assembly: the superframes and their codewords are views of the frame
+    # bytes; what the RS stage adds around kernel I (the error sums, the
+    # audio's interleave) is timed as the stage less the kernel
+    stage_ms, _ = cuda_ms(lambda: dab.rs_superframes(dab.bytes_to_superframes(
         frame_bytes.reshape(B_SF, dab.SUPERFRAME_FRAMES, cfg.frame_bytes),
-        cfg).reshape(B_SF, C.RS_N, cfg.rs_dims).transpose(1, 2)
-        .reshape(B_SF * cfg.rs_dims, C.RS_N).contiguous(), 5)
-    rs_ms, _ = cuda_ms(lambda: rs_ops.rs_decode_blocks(blocks), 5)
+        cfg), cfg.rs_dims, True), 20)
     rs_launches = _common.count_launches(
         lambda: rs_ops.rs_decode_blocks(blocks))
+    stage_launches = _common.count_launches(
+        lambda: dab.rs_superframes(sf_bytes, cfg.rs_dims, True))
+    assert rs_launches <= 2, f"RS took {rs_launches} launches a call"
     print(f"{tag} superframe path B={B_SF} at {SF_KBPS} kbit/s: "
           f"{B_SF / e2e_s:.1f} superframes/s end to end (median "
           f"{e2e_s * 1e3:.2f} ms of 3), {B_SF / res_ms * 1e3:.1f} "
-          f"superframes/s with the symbols resident ({res_ms:.2f} ms); "
-          f"split Viterbi {vit_ms:.2f} ms, assembly {asm_ms:.2f} ms, RS "
-          f"{rs_ms:.2f} ms in {rs_launches} launches")
-    return launches, (syms, out_a, out_e)
+          f"superframes/s with the symbols resident ({res_ms:.3f} ms); "
+          f"split Viterbi {vit_ms:.3f} ms, assembly "
+          f"{stage_ms - rs_ms:.3f} ms, RS {rs_ms:.4f} ms in {rs_launches} "
+          f"launches (kernel I; the RS stage {stage_ms:.3f} ms in "
+          f"{stage_launches} launches; the plain version {rs_plain_ms:.2f} "
+          f"ms)")
+    rs_row = {"ms": rs_ms, "plain_ms": rs_plain_ms, "mix": rs_mix}
+    return launches, (syms, out_a, out_e), rs_row
 
 
-def rs_export(tag) -> None:
-    """Phase 9a: rs_check_superframe through the API against golden."""
+def rs_export(tag) -> dict:
+    """Phase 9a: rs_check_superframe through the API against golden, each
+    call's ms and device launches, and the same call with the plain
+    decode in kernel I's place (what the export ran before kernel I).
+    Returns kernel I's launches a call."""
     import viterbi_tpu_torch
     from viterbi_tpu_torch import constants as C
     from viterbi_tpu_torch import golden
+    from viterbi_tpu_torch.ops import rs as rs_ops
+    from viterbi_tpu_torch.probes import _common
     rung("cuda_fused")
     rng = np.random.default_rng(9)
+    kernel = rs_ops.rs_decode_blocks
+    per_call = None
     for rs_dims in (1, 4, 16, 48):
         cases = {"clean": [0] * rs_dims,
                  "corrected": [(3 * j) % 6 for j in range(rs_dims)],
@@ -739,13 +822,21 @@ def rs_export(tag) -> None:
             sf = cws.T.reshape(-1)
             g_err, g_out = golden.rs_check_superframe(sf, rs_dims)
             buf = bytearray([0xEE] * (rs_dims * C.RS_KK))
+
+            def call():
+                return viterbi_tpu_torch.rs_check_superframe(sf, 0, rs_dims,
+                                                             buf)
+
             runs = []
+            kernel.launches = 0
             for _ in range(5):
                 buf[:] = bytes([0xEE]) * len(buf)
                 t0 = time.perf_counter()
-                ret = viterbi_tpu_torch.rs_check_superframe(sf, 0, rs_dims,
-                                                            buf)
+                ret = call()
                 runs.append(time.perf_counter() - t0)
+            per_call, rem = divmod(kernel.launches, len(runs))
+            assert (per_call, rem) == (1, 0), \
+                f"kernel I x {kernel.launches} in {len(runs)} calls"
             times[case] = statistics.median(runs) * 1e3
             assert ret == g_err, f"rs_dims {rs_dims} {case}: {ret} != {g_err}"
             assert (ret == -1) == (case == "uncorrectable")
@@ -759,24 +850,47 @@ def rs_export(tag) -> None:
                 want = want.reshape(-1)
             assert np.array_equal(np.frombuffer(bytes(buf), np.uint8),
                                   want), f"rs_dims {rs_dims} {case}: bytes"
+        # the corrected case's launches a call, with kernel I and with the
+        # plain decode in its place
+        n_dev = _common.count_launches(call)
+        rs_ops.rs_decode_blocks = rs_ops.rs_decode_blocks_plain
+        try:
+            plain_runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                assert call() == ret
+                plain_runs.append(time.perf_counter() - t0)
+            n_plain = _common.count_launches(call)
+        finally:
+            rs_ops.rs_decode_blocks = kernel
         print(f"{tag} rs_check_superframe rs_dims={rs_dims}: clean, "
               f"corrected and -1 (prefix of {rs_dims // 2}) equal to golden; "
-              + ", ".join(f"{c} {ms:.2f} ms" for c, ms in times.items())
-              + " per call")
+              + ", ".join(f"{c} {ms:.3f} ms" for c, ms in times.items())
+              + f" a call, {n_dev} device launches (kernel I once); with "
+              f"the plain decode {statistics.median(plain_runs) * 1e3:.3f} "
+              f"ms in {n_plain} launches")
+    return {"rs_decode": per_call}
 
 
-def rs_forms(tag) -> None:
+def rs_forms(tag) -> dict:
     """Phase 9b: the table form and the bitwise form of the field
-    arithmetic on three error mixes (probes.rsform, which raises unless
-    they are equal, count as planted and agree with golden)."""
+    arithmetic and kernel I on three error mixes (probes.rsform, which
+    raises unless all three are equal, count as planted and agree with
+    golden); kernel I's launches a call, counted on every mix."""
     from viterbi_tpu_torch.probes import rsform
     rows = rsform.main([])
-    assert len(rows) == 2 * len(rsform.MIXES)
+    assert len(rows) == len(rsform.DECODERS) * len(rsform.MIXES)
     for r in rows:
         assert r["ms"] > 0 and r["launches"], r
+        # kernel I once a call in its row, never in the field forms' rows
+        assert r["kernel_launches"] == (r["form"] == "kernel"), r
+        if r["form"] == "kernel":
+            assert r["launches"] <= 2, r
+    per_call = {r["kernel_launches"] for r in rows if r["form"] == "kernel"}
     print(f"{tag} RS forms: " + "; ".join(
-        f"{r['mix']} {r['form']} {r['ms']:.2f} ms in {r['launches']} launches"
+        f"{r['mix']} {r['form']} {r['ms']:.4f} ms in {r['launches']} launches"
         for r in rows))
+    return {"rs_decode": per_call.pop()}
 
 
 def eep_path(dev, tag, check) -> dict:
@@ -1101,7 +1215,7 @@ def tailbiting_phase(dev, tag, check) -> dict:
     launches = _record.launches()
     print(f"tail-biting launches: {launches}")
     assert launches == {"acs_regs": 1, "acs_words": 1, "tb_walk": 1,
-                        "tb_words": 0}, launches
+                        "tb_words": 0, "rs_decode": 0}, launches
     assert out.device == syms.device and out.shape == (TB_FRAMES, fb // 8)
     nerr = channel.bit_errors_on_device(out, bits)
     assert nerr < TB_FRAMES * fb * 1e-3, f"{nerr} bit errors at 3 dB"
@@ -1316,7 +1430,8 @@ def ingest_phase(dev, tag, packed) -> dict:
         batches, lambda t: acs_cuda.decode(t, FB_MAIN, packed="bt"), dev,
         INGEST_ROUNDS)
     assert launches == {"acs_regs": INGEST_BATCHES, "acs_words": 0,
-                        "tb_walk": INGEST_BATCHES, "tb_words": 0}, launches
+                        "tb_walk": INGEST_BATCHES, "tb_words": 0,
+                        "rs_decode": 0}, launches
     med = {k: statistics.median(v) for k, v in secs.items()}
     spread = {k: f"{med[k]:.1f} ({min(v):.1f}-{max(v):.1f})"
               for k, v in secs.items()}
@@ -1355,10 +1470,12 @@ def rank_mesh(name, n_data, n_seq, rank, store):
         timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
 
 
-def timed_path(fn, record=(), runs: int = 3):
-    """(the launches of kernels A and B in one call, its output, the median
-    wall seconds of ``runs`` more calls, each ended by a synchronise, and
-    the first call's calls of each ``(module, name)`` in ``record``)."""
+def timed_path(fn, record=(), runs: int = 3,
+               kernels=("acs_regs", "tb_walk")):
+    """(the launches of ``kernels`` in one call, each of which must launch,
+    its output, the median wall seconds of ``runs`` more calls, each ended
+    by a synchronise, and the first call's calls of each ``(module,
+    name)`` in ``record``)."""
     import torch
     from viterbi_tpu_torch.tools import _record
     with contextlib.ExitStack() as stack:
@@ -1367,8 +1484,7 @@ def timed_path(fn, record=(), runs: int = 3):
         _record.zero_launches()
         out = fn()
         torch.cuda.synchronize()
-        launches = _record.launches()
-    del launches["acs_words"], launches["tb_words"]
+        launches = {k: _record.launches()[k] for k in kernels}
     for name, count in launches.items():
         assert count > 0, f"a rank never launched {name}: {launches}"
     walls = []
@@ -1531,7 +1647,8 @@ def several_rank(rank, world_size, store, data_dir):
     if m is not None:
         esyms = load("ens_syms")
         launches, (audio, errors), wall, _ = timed_path(
-            lambda: dab.decode_ensemble_sharded(esyms, SF_KBPS, m))
+            lambda: dab.decode_ensemble_sharded(esyms, SF_KBPS, m),
+            kernels=("acs_regs", "tb_walk", "rs_decode"))
         assert np.array_equal(audio.cpu().numpy(), load("ens_audio")) and \
             np.array_equal(errors.cpu().numpy(), load("ens_errors")), \
             "decode_ensemble_sharded != the one-process chain"
@@ -1757,7 +1874,7 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     errs = dict.fromkeys(("acs_regs", "tb_walk", "acs_words", "tb_words",
                           "kablate", "kdtype_op", "kdtype_chain",
-                          "kilp_streams"), 0)
+                          "kilp_streams", "rs_decode"), 0)
 
     def check(kernel, got, want, what):
         e = max_abs_err(got, want)
@@ -2067,12 +2184,20 @@ def main() -> int:
     # --- phases 8-11: the superframe chain, RS, EEP, replay -----------------
     rung("cuda_fused")
     t0 = time.perf_counter()
-    sf_launches, sf = superframe_path(dev, tag, check)
+    sf_launches, sf, rs_row = superframe_path(dev, tag, check)
     print(f"superframe phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rs_export(tag)
-    rs_forms(tag)
+    rs_paths = {"superframe": sf_launches, "rs_check_superframe":
+                rs_export(tag), "rsform": rs_forms(tag)}
     print(f"RS phase: {time.perf_counter() - t0:.1f} s")
+    # kernel I's bound on the chain's codewords: each byte read once at its
+    # width, the counts and the int32 codewords written once; the
+    # operations this run's codewords need (rs_decoder_ops)
+    mix = rs_row["mix"]
+    bounds["rs_decode"] = bound(
+        mix["codewords"] * (C.RS_N * mix["in_bytes"] + 4 + C.RS_N * 4),
+        mix["ops"], clock_hz)
+    times["rs_decode"] = (rs_row["ms"], rs_row["plain_ms"])
     t0 = time.perf_counter()
     eep_launches = eep_path(dev, tag, check)
     replay_phase(ROOT)
@@ -2087,7 +2212,7 @@ def main() -> int:
 
     # --- phases 13-16: tail-biting, streaming, sessions, host ingest ---------
     fused_gsym = nsym / (times["acs_regs"][0] + times["tb_walk"][0]) / 1e6
-    paths = {"main": launches}
+    paths = {"main": launches, **rs_paths}
     t_new = time.perf_counter()
     for name, phase in (
             ("tailbiting", lambda: tailbiting_phase(dev, tag, check)),
@@ -2129,6 +2254,8 @@ def main() -> int:
         "kdtype_op": (csrc + "probes/kdtype.cu", "scripts/kdtype.py:27"),
         "kdtype_chain": (csrc + "probes/kdtype.cu", "scripts/kdtype.py:60"),
         "kilp_streams": (csrc + "probes/kilp.cu", "scripts/kilp.py:30"),
+        # a jitted XLA function, not a Pallas kernel
+        "rs_decode": (csrc + "rs_decode.cu", "viterbi_tpu/ops/rs.py:166"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
@@ -2136,8 +2263,10 @@ def main() -> int:
         if name in probe_rows:
             row.update(probe_rows[name])
         else:
-            # no single PyTorch call computes kernels A-D
-            row.update(launches=launches[name], ms=times[name][0],
+            # no single PyTorch call computes kernels A-D or I; kernel I's
+            # launches are the superframe chain's (phase 8)
+            path_launches = sf_launches if name == "rs_decode" else launches
+            row.update(launches=path_launches[name], ms=times[name][0],
                        plain_ms=times[name][1], library_ms=None,
                        **bounds[name])
             if name in lanes_at_main:     # the form taken at this batch

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels against their plain torch versions on the
 card, bit for bit: the pytest twin of ``chip_smoke.py``'s kernel phase
 (kernels A and B of the fused path, C and D of the words path, E to H of
-the probes).
+the probes, I of RS).
 
 Every test here needs a CUDA device and skips without one (through the
 ``cuda`` fixture). Run them on the card with
@@ -12,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from torch_rs_traps import TRAPS, trap_word
+
+from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.ops import acs_cuda
+from viterbi_tpu_torch.ops import rs as rs_ops
 from viterbi_tpu_torch.ops import traceback as tb
-from viterbi_tpu_torch.probes import kablate, kdtype, kilp
+from viterbi_tpu_torch.probes import _common, kablate, kdtype, kilp, rsform
 
 pytestmark = pytest.mark.cuda
 
@@ -313,14 +317,17 @@ def test_superframe_chain_on_card_matches_plain_only_call(cuda, kbps):
     _, syms = channel.make_superframes(6, kbps, seed=kbps, ebn0_db=3.0,
                                        uncorrectable=1)
     dsyms = torch.from_numpy(syms).to(cuda)
-    before = acs_cuda.forward_regs.launches, tb.tb_walk.launches
+
+    def launches():
+        return (acs_cuda.forward_regs.launches, tb.tb_walk.launches,
+                rs_ops.rs_decode_blocks.launches)
+
+    before = launches()
     audio, errors = dab.decode_audio_superframes(dsyms, kbps)
-    assert (acs_cuda.forward_regs.launches, tb.tb_walk.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert launches() == tuple(n + 1 for n in before)
     p_audio, p_errors = dab.decode_audio_superframes(dsyms, kbps,
                                                      use_kernels=False)
-    assert (acs_cuda.forward_regs.launches, tb.tb_walk.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert launches() == tuple(n + 1 for n in before)
     assert torch.equal(audio, p_audio) and torch.equal(errors, p_errors)
     assert (errors == -1).any() and (errors >= 0).any()
 
@@ -428,3 +435,102 @@ def test_streams_kernel_matches_plain(cuda, nstreams, mode):
         got = kilp.streams(x, nstreams, mode, 25, c)
         assert kilp.streams.launches == before + 1
         assert torch.equal(got, kilp.streams_plain(x, nstreams, mode, 25, c))
+
+
+# --- kernel I: the RS(120,110) decoder ---------------------------------------
+
+def _hold_rs(blocks, want=None):
+    """Kernel I on ``blocks`` (any view) against its plain version on the
+    same tensor: one launch, bit for bit."""
+    before = rs_ops.rs_decode_blocks.launches
+    got = rs_ops.rs_decode_blocks(blocks)
+    assert rs_ops.rs_decode_blocks.launches == before + 1
+    want = want or rs_ops.rs_decode_blocks_plain(blocks)
+    for g, w in zip(got, want, strict=True):
+        assert g.is_cuda and g.dtype == torch.int32
+        assert torch.equal(g, w)
+    return got
+
+
+def _rs_mix(mix, codewords, seed=5):
+    """``probes.rsform``'s mix: clean codewords with planted errors."""
+    rng = np.random.default_rng(seed)
+    clean = np.tile(golden.rs_encode_many(rng.integers(
+        0, 256, (256, C.RS_KK), dtype=np.uint8)).astype(np.int32),
+        (-(-codewords // 256), 1))[:codewords]
+    return rsform.corrupt_mix(rng, clean, *rsform.MIXES[mix])
+
+
+@pytest.mark.parametrize("mix", list(rsform.MIXES))
+def test_rs_kernel_matches_plain_on_the_mixes(cuda, mix):
+    cws, nerr = _rs_mix(mix, rsform.CODEWORDS)
+    count, corrected = _hold_rs(torch.from_numpy(cws).to(cuda))
+    count, corrected = count.cpu().numpy(), corrected.cpu().numpy()
+    fixed = nerr <= 5
+    assert np.array_equal(count[fixed], nerr[fixed])
+    # nine errors: -1, or a miscorrection into another codeword, as golden
+    for i in np.nonzero(~fixed)[0]:
+        g_count, g_corr = golden.rs_decode_codeword(cws[i])
+        assert count[i] == g_count and np.array_equal(corrected[i], g_corr)
+
+
+@pytest.mark.parametrize("batch", [1, 31, 33, 4097])
+def test_rs_kernel_ragged_batches(cuda, batch):
+    """Batches that leave a block's last warps idle and, at 4097, more
+    codewords than warps in flight on some cards' grids."""
+    cws, _ = _rs_mix("all dirty", batch, seed=batch)
+    _hold_rs(torch.from_numpy(cws).to(cuda))
+    _hold_rs(torch.from_numpy(cws.astype(np.uint8)).to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("rs_dims", [1, 16, 48])
+def test_rs_kernel_reads_the_export_and_chain_views(cuda, dtype, rs_dims):
+    """The export's deinterleaved view [rs_dims, 120] (strides 1 and
+    rs_dims) and the chain's [B, rs_dims, 120] view of B superframes, read
+    in place, with no copy before the launch."""
+    B = 7
+    cws, _ = _rs_mix("64 uncorrectable", B * rs_dims, seed=rs_dims)
+    sf = torch.from_numpy(cws.reshape(B, rs_dims, C.RS_N).transpose(0, 2, 1)
+                          .reshape(B, -1).copy()).to(dtype).to(cuda)
+    want = rs_ops.rs_decode_blocks_plain(torch.from_numpy(cws).to(cuda))
+    view = sf.reshape(B, C.RS_N, rs_dims).transpose(1, 2)
+    assert not view.is_contiguous() or rs_dims == 1
+    count, corrected = _hold_rs(view)
+    assert torch.equal(count.reshape(-1), want[0])
+    assert torch.equal(corrected.reshape(-1, C.RS_N), want[1])
+    for b in (0, B - 1):
+        blocks = rs_ops.deinterleave(sf[b], rs_dims)
+        rows = slice(b * rs_dims, (b + 1) * rs_dims)
+        _hold_rs(blocks, (want[0][rows], want[1][rows]))
+
+
+@pytest.mark.parametrize("trap", list(TRAPS))
+def test_rs_kernel_holds_the_reference_traps(cuda, trap):
+    word = trap_word(trap)
+    blocks = torch.from_numpy(np.stack([word] * 3).astype(np.int32)).to(cuda)
+    count, corrected = _hold_rs(blocks)
+    g_count, g_corr = golden.rs_decode_codeword(word)
+    assert (count.cpu() == g_count).all()
+    assert (corrected.cpu().numpy() == g_corr).all()
+
+
+def test_rs_kernel_is_one_launch_and_the_superframe_check_follows(cuda):
+    """rs_decode_blocks on a card tensor is kernel I, one device launch
+    (the plain version takes about 340), and the export's decode is the
+    same; int64 codewords are refused, not converted."""
+    cws, _ = _rs_mix("clean-dominated", 4096)
+    blocks = torch.from_numpy(cws).to(cuda)
+    rs_ops.rs_decode_blocks(blocks)
+    assert _common.count_launches(
+        lambda: rs_ops.rs_decode_blocks(blocks)) <= 2
+    before = rs_ops.rs_decode_blocks.launches
+    p = blocks[:16].T.reshape(-1).contiguous()
+    errors, out, n_ok = rs_ops.rs_check_superframe(p, 16)
+    assert rs_ops.rs_decode_blocks.launches == before + 1
+    g_err, g_out = golden.rs_check_superframe(p.cpu().numpy(), 16)
+    assert int(errors) == g_err
+    if g_err >= 0:
+        assert np.array_equal(out.cpu().numpy(), g_out)
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        rs_ops.rs_decode_blocks(blocks.long())

@@ -4,7 +4,8 @@ package's device meshes: the rank -> coordinate map and the groups of
 ``local_rows`` against JAX's data sharding, ``local_batch_slice``,
 ``initialize`` (a no-op alone, a raise on a broken set-up), the two
 exchange helpers over 2 and 4 thread ranks, a lost peer raising within
-the group's timeout, and ``run_ranks``' failure and time limit. Ranks
+the group's timeout, and ``run_ranks``' failure, time limit and ranks
+that exit while it watches them. Ranks
 run as threads of this process over one ``HashStore``
 (``torch_ranks.thread_ranks``); nothing reaches the network."""
 
@@ -278,6 +279,54 @@ def test_run_ranks_ends_ranks_past_their_time_limit():
     with pytest.raises(TimeoutError, match="not done within 3 s"):
         D.run_ranks(sleep_long, 2, timeout=3)
     assert time.monotonic() - t0 < 30
+
+
+class _RanksThatExitWhileWatched:
+    """A spawn context whose processes run their rank at ``start`` and
+    report ``exitcode`` None for the first ``alive_reads`` reads (over all
+    ranks together), 0 after: the ranks end while ``run_ranks`` looks at
+    them, between its check that one is alive and its join."""
+
+    def __init__(self, alive_reads):
+        self.reads = 0
+        self.alive_reads = alive_reads
+        self.joined = []
+
+    def Process(self, target, args):    # noqa: N802 (multiprocessing's name)
+        ctx = self
+
+        class Proc:
+            @property
+            def exitcode(self):
+                ctx.reads += 1
+                return None if ctx.reads <= ctx.alive_reads else 0
+
+            def start(self):
+                target(*args)
+
+            def join(self, timeout=None):
+                ctx.joined.append(timeout)
+
+            def kill(self):
+                raise AssertionError("killed a rank that had ended")
+
+        return Proc()
+
+
+@pytest.mark.parametrize("world,alive_reads", [(1, 2), (2, 3), (2, 4)])
+def test_run_ranks_survives_ranks_exiting_between_check_and_join(
+        monkeypatch, world, alive_reads):
+    """The ranks end after the loop's check that one is alive and before
+    it picks one to join; run_ranks returns their results all the same (a
+    loop that picks the rank from a second read of exitcode finds none
+    there and raises StopIteration)."""
+    ctx = _RanksThatExitWhileWatched(alive_reads)
+    monkeypatch.setattr(D.multiprocessing, "get_context",
+                        lambda method: ctx)
+    got = D.run_ranks(lambda rank, world_size, store: (rank, world_size),
+                      world, timeout=60)
+    assert got == [(r, world) for r in range(world)]
+    assert ctx.reads > alive_reads and ctx.joined
 
 
 def test_timeout_constant_is_finite():

@@ -1,14 +1,19 @@
 """The port's RS(120,110) layer against the JAX package's on the same
 codewords: the golden model's RS half, ``ops.rs`` (with the bitwise field
-of ``probes.rsform`` as its cross-check) and the ``rs_check_superframe``
-export. Tolerance zero:
-counts, corrected bytes, ``n_ok`` and every byte written are identical.
+of ``probes.rsform`` as its cross-check), the ``rs_check_superframe``
+export, a torch model of kernel I's schedule (the kernel itself runs only
+on the card: ``tests/test_torch_kernels.py``) and the chain's RS stage.
+Tolerance zero: counts, corrected bytes, ``n_ok`` and every byte written
+are identical.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from torch_rs_traps import TRAPS, trap_word
 
 import viterbi_tpu
 import viterbi_tpu.golden as JG
@@ -313,3 +318,352 @@ def test_api_logs_and_captures_the_superframe(tmp_path):
     assert len(captured) == 1
     assert np.array_equal(np.load(captured[0]), sf)
     assert "rscs:" in (tmp_path / "cap.log").read_text()
+
+
+# --- kernel I's schedule, modelled in torch --------------------------------
+#
+# Kernel I (csrc/rs_decode.cu) runs only on the card. This model follows
+# its schedule lane by lane, 32 lanes a codeword: each lane's four bytes
+# (j = lane + 32 k) and ten partial syndromes packed four to a word, the
+# XOR butterfly of the shuffles, the warp-uniform exit of a clean
+# codeword, Berlekamp-Massey with coefficient `lane` on lanes 0-10, the
+# Chien search with eight field elements a lane and the roots placed by
+# ballot and prefix popcount, omega coefficient `lane`, Forney root `lane`.
+
+_ATO_T = torch.from_numpy(TR._ATO_NP.astype(np.int64))
+_IOF_T = torch.from_numpy(TR._IOF_NP.astype(np.int64))
+_LANE = torch.arange(32)
+_NN = C.RS_NN
+
+
+def _shfl_xor(x, off):
+    """__shfl_xor_sync over the lane axis (the last)."""
+    return x[..., _LANE ^ off]
+
+
+def _ballot(pred):
+    """__ballot_sync: [B, 32] bool -> [B] bit mask, lane l at bit l."""
+    return (pred.to(torch.int64) << _LANE).sum(dim=-1)
+
+
+def _popc(mask):
+    return ((mask[..., None] >> _LANE) & 1).sum(dim=-1)
+
+
+def _mul(a, b):
+    """The kernel's product through the tables: 0 if either is 0."""
+    return torch.where((a != 0) & (b != 0), _ATO_T[_IOF_T[a] + _IOF_T[b]], 0)
+
+
+def _syndrome(words, i):
+    """Syndrome i (a tensor of indices) from the three packed words."""
+    w = torch.gather(words, -1, (i >> 2).clamp(0, 2))
+    return (w >> (8 * (i & 3))) & 0xFF
+
+
+def kernel_model(blocks: torch.Tensor):
+    """Kernel I's result on [B, 120] codewords, computed its way. Returns
+    (count int32[B], corrected int32[B, 120], what) with ``what`` the
+    schedule's inner values: deg_lambda, the ballots' roots (0 beyond
+    count) and num1 at each root past the pad (-1 elsewhere)."""
+    data = blocks.reshape(-1, C.RS_N).to(torch.int64)
+    B = data.shape[0]
+    j = _LANE[None, :] + 32 * torch.arange(4)[:, None]          # [4, 32]
+    in_row = j < C.RS_N
+    d = torch.where(in_row, data[:, j.clamp(max=C.RS_N - 1)], 0)  # [B,4,32]
+
+    # syndromes: a lane's bytes, ten roots each, packed four to a word
+    words = torch.zeros((B, 3, 32), dtype=torch.int64)
+    for k in range(4):
+        v = d[:, k] & 0xFF
+        live = in_row[k] & (v != 0)
+        lg, e = _IOF_T[v], torch.zeros(32, dtype=torch.int64)
+        for i in range(C.RS_NROOTS):
+            term = torch.where(live, _ATO_T[lg + e], 0) << (8 * (i & 3))
+            words[:, i >> 2] ^= term
+            e = e + (C.RS_N - 1 - j[k])
+            e = torch.where(e >= _NN, e - _NN, e)
+    for off in (16, 8, 4, 2, 1):
+        words = words ^ _shfl_xor(words, off)
+    assert (words == words[..., :1]).all()        # every lane holds them
+    words = words[..., 0]                                      # [B, 3]
+    clean = (words == 0).all(dim=1)                            # warp-uniform
+
+    # Berlekamp-Massey: coefficient `lane` of lambda and b
+    lam = (_LANE == 0).to(torch.int64).expand(B, 32).clone()
+    bb = lam.clone()
+    el = torch.zeros(B, dtype=torch.int64)
+    wl = words[:, None, :].expand(B, 32, 3)
+    for r in range(1, C.RS_NROOTS + 1):
+        sv = _syndrome(wl, (r - 1 - _LANE).clamp(min=0)[None, :, None]
+                       .expand(B, 32, 1))[..., 0]
+        t = torch.where(_LANE < r, _mul(lam, sv), 0)
+        for off in (8, 4, 2, 1):
+            t = t ^ _shfl_xor(t, off)
+        discr = t[:, :1]                                       # lane 0's
+        shift_b = torch.cat([torch.zeros((B, 1), dtype=torch.int64),
+                             bb[:, :-1]], dim=1)               # shfl_up
+        shift_b = torch.where(_LANE > C.RS_NROOTS, 0, shift_b)
+        swap = (2 * el[:, None] <= r - 1) & (discr != 0)
+        inv = _ATO_T[_NN - _IOF_T[discr]]
+        bb = torch.where(swap, _mul(lam, inv), shift_b)
+        lam = lam ^ _mul(discr.expand(B, 32), shift_b)
+        el = torch.where(swap[:, 0], r - el, el)
+    ballot = _ballot(lam != 0)
+    deg = torch.where(((ballot[:, None] >> _LANE) & 1) != 0, _LANE, -1) \
+        .amax(dim=1)                                   # 31 - clz(ballot)
+    lg = torch.where(lam != 0, _IOF_T[lam], _NN)[:, :C.RS_NROOTS + 1]
+
+    # Chien: elements lane + 1 + 32 k; roots by ballot and prefix count
+    count = torch.zeros(B, dtype=torch.int64)
+    roots = torch.zeros((B, C.RS_NROOTS), dtype=torch.int64)
+    below = (1 << _LANE) - 1
+    for k in range(8):
+        i = _LANE + 1 + 32 * k
+        step = torch.where(i == _NN, 0, i)
+        q, e = torch.ones((B, 32), dtype=torch.int64), torch.zeros(
+            32, dtype=torch.int64)
+        for jj in range(1, C.RS_NROOTS + 1):
+            e = e + step
+            e = torch.where(e >= _NN, e - _NN, e)
+            q = q ^ torch.where(lg[:, jj:jj + 1] != _NN,
+                                _ATO_T[lg[:, jj:jj + 1] + e], 0)
+        root = (i <= _NN) & (q == 0)
+        bal = _ballot(root)
+        slot = count[:, None] + _popc(bal[:, None] & below)
+        put = root & (slot < C.RS_NROOTS)
+        b_idx, l_idx = torch.nonzero(put, as_tuple=True)
+        roots[b_idx, slot[b_idx, l_idx]] = i[l_idx]
+        count = count + _popc(bal)
+    correctable = count == deg
+
+    # omega coefficient `lane` (< 10), then Forney root `lane` (< count)
+    sl = torch.stack([(words[:, i >> 2] >> (8 * (i & 3))) & 0xFF
+                      for i in range(C.RS_NROOTS)], dim=1)      # [B, 10]
+    om = torch.zeros((B, C.RS_NROOTS), dtype=torch.int64)
+    for jj in range(C.RS_NROOTS):
+        for ln in range(jj, C.RS_NROOTS):
+            sv = sl[:, ln - jj]
+            ok = (lg[:, jj] != _NN) & (sv != 0)
+            om[:, ln] ^= torch.where(ok, _ATO_T[_IOF_T[sv] + lg[:, jj]
+                                                .clamp(max=_NN - 1)], 0)
+    ol = torch.where(om != 0, _IOF_T[om], _NN)
+    lane = torch.arange(C.RS_NROOTS)
+    active = (lane < count[:, None]) & (roots >= C.RS_PAD + 1)
+    num1 = torch.zeros((B, C.RS_NROOTS), dtype=torch.int64)
+    for i in range(C.RS_NROOTS):
+        ok = (i < deg[:, None]) & (ol[:, i:i + 1] != _NN)
+        num1 ^= torch.where(ok, _ATO_T[TR.mod255(ol[:, i:i + 1]
+                                                 + i * roots)], 0)
+    num2 = _ATO_T[(_NN - roots).clamp(min=0)]
+    top = deg.clamp(max=C.RS_NROOTS - 1) & ~1
+    den = torch.zeros((B, C.RS_NROOTS), dtype=torch.int64)
+    for i in range(0, C.RS_NROOTS, 2):
+        ok = (i <= top[:, None]) & (lg[:, i + 1:i + 2] != _NN)
+        den ^= torch.where(ok, _ATO_T[TR.mod255(lg[:, i + 1:i + 2]
+                                                + i * roots)], 0)
+    errval = _ATO_T[_IOF_T[num1] + _IOF_T[num2] + (_NN - _IOF_T[den])]
+    apply = active & (num1 != 0) & (correctable & ~clean)[:, None]
+    corr = torch.zeros((B, C.RS_N), dtype=torch.int64)
+    b_idx, r_idx = torch.nonzero(apply, as_tuple=True)
+    corr[b_idx, roots[b_idx, r_idx] - 1 - C.RS_PAD] = errval[b_idx, r_idx]
+
+    count = torch.where(clean, 0, torch.where(correctable, count, -1))
+    corrected = data ^ torch.where(count[:, None] > 0, corr, 0)
+    what = {"deg_lambda": deg, "roots": torch.where(lane < count[:, None]
+                                                    .clamp(min=0), roots, 0),
+            "num1": torch.where(active, num1, -1)}
+    return count.to(torch.int32), corrected.to(torch.int32), what
+
+
+_JAX_ROWS = 6
+
+
+def _jax_decode(cws):
+    """JAX's rs_decode_blocks in batches of six rows, the last one padded
+    with zeros: one shape, so XLA compiles once."""
+    cws = np.asarray(cws, np.int32)
+    n = -(-len(cws) // _JAX_ROWS) * _JAX_ROWS
+    padded = np.zeros((n, C.RS_N), np.int32)
+    padded[:len(cws)] = cws
+    out = [JR.rs_decode_blocks(jnp.asarray(padded[i:i + _JAX_ROWS]))
+           for i in range(0, n, _JAX_ROWS)]
+    return (np.concatenate([np.asarray(c) for c, _ in out])[:len(cws)],
+            np.concatenate([np.asarray(d) for _, d in out])[:len(cws)])
+
+
+def _hold(cws):
+    """kernel_model, the plain version, the JAX package's XLA decoder and
+    golden on the same codewords: all four equal, bit for bit."""
+    blocks = torch.from_numpy(np.asarray(cws, dtype=np.int64))
+    m_c, m_d, what = kernel_model(blocks)
+    p_c, p_d = TR.rs_decode_blocks_plain(blocks)
+    j_c, j_d = _jax_decode(cws)
+    assert torch.equal(m_c, p_c) and torch.equal(m_d, p_d)
+    assert np.array_equal(m_c.numpy(), np.asarray(j_c))
+    assert np.array_equal(m_d.numpy(), np.asarray(j_d))
+    for i, cw in enumerate(cws):
+        g_c, g_d = TG.rs_decode_codeword(cw)
+        assert m_c[i] == g_c and np.array_equal(m_d[i].numpy(), g_d), i
+    return m_c, m_d, what
+
+
+_codeword_batches = st.lists(
+    st.tuples(st.binary(min_size=C.RS_KK, max_size=C.RS_KK),
+              st.lists(st.tuples(st.integers(0, C.RS_N - 1),
+                                 st.integers(1, 255)),
+                       max_size=10, unique_by=lambda e: e[0])),
+    min_size=_JAX_ROWS, max_size=_JAX_ROWS)
+
+
+@settings(max_examples=40, deadline=None)
+@given(_codeword_batches)
+def test_kernel_schedule_matches_plain_jax_and_golden(batch):
+    """Six codewords with 0 to 10 byte errors anywhere, the parity bytes
+    included: up to 5 corrected, the rest -1 or a miscorrection, all
+    four decoders the same."""
+    msgs = np.stack([np.frombuffer(m, np.uint8) for m, _ in batch])
+    cws = TG.rs_encode_many(msgs).astype(np.int64)
+    for cw, (_, errs) in zip(cws, batch):
+        for pos, val in errs:
+            cw[pos] ^= val
+    count, fixed, _ = _hold(cws)
+    for i, (_, errs) in enumerate(batch):
+        if len(errs) <= 5:
+            assert count[i] == len(errs)
+            assert np.array_equal(fixed[i, :C.RS_KK].numpy(), msgs[i])
+
+
+@pytest.mark.parametrize("trap", list(TRAPS))
+def test_kernel_schedule_holds_the_reference_traps(trap):
+    word = trap_word(trap)
+    count, fixed, what = _hold(word[None])
+    count, roots, num1 = int(count[0]), what["roots"][0], what["num1"][0]
+    changed = int((fixed[0].numpy() != word).sum())
+    if trap == "root_in_pad":
+        in_pad = int(((roots > 0) & (roots < C.RS_PAD + 1)).sum())
+        assert count > 0 and in_pad > 0
+        assert changed == count - in_pad
+    elif trap == "num1_zero":
+        assert count > 0 and (num1 == 0).any()
+        assert changed < count
+    else:
+        assert count == -1 and changed == 0
+        assert what["deg_lambda"][0] > 0
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.binary(min_size=C.RS_KK, max_size=C.RS_KK),
+       st.lists(st.tuples(st.integers(0, C.RS_N - 1), st.integers(1, 255)),
+                max_size=5, unique_by=lambda e: e[0]))
+def test_decoder_work_counts_what_the_reference_does(msg, errs):
+    """``decoder_work``, from which kernel I's bound counts operations, on
+    a codeword with 0 to 5 byte errors, the parity bytes included: a clean
+    one needs only its syndromes; otherwise lambda has one degree an
+    error, the Chien search stops at the last error's root and Forney
+    evaluates every root."""
+    cw = TG.rs_encode_many(np.frombuffer(msg, np.uint8)[None]).astype(
+        np.int64)
+    for pos, val in errs:
+        cw[0, pos] ^= val
+    w = {k: int(v[0]) for k, v in TR.decoder_work(
+        torch.from_numpy(cw)).items()}
+    t = len(errs)
+    assert w["dirty"] == (t > 0)
+    if t:
+        assert w["deg_lambda"] == t and w["correctable"]
+        assert w["chien"] == max(p for p, _ in errs) + 1 + C.RS_PAD
+        assert w["forney"] == t and 1 <= w["terms"] <= t
+
+
+@pytest.mark.parametrize("trap", list(TRAPS))
+def test_decoder_work_on_the_reference_traps(trap):
+    """On the traps, against the roots of kernel I's model: a search that
+    finds too few roots visits all 255 elements and Forney runs nowhere;
+    a root in the pad is skipped by Forney."""
+    blocks = torch.from_numpy(trap_word(trap)[None])
+    w = {k: int(v[0]) for k, v in TR.decoder_work(blocks).items()}
+    _, _, what = kernel_model(blocks)
+    roots = what["roots"][0]
+    roots = roots[roots > 0]
+    assert w["dirty"] and w["deg_lambda"] == int(what["deg_lambda"][0])
+    if trap == "degree_mismatch":
+        assert not w["correctable"]
+        assert w["chien"] == C.RS_NN and w["forney"] == 0
+    else:
+        assert w["correctable"] and w["chien"] == int(roots.max())
+        assert w["forney"] == int((roots >= C.RS_PAD + 1).sum())
+        if trap == "root_in_pad":
+            assert w["forney"] < w["deg_lambda"]
+
+
+def test_kernel_schedule_on_fixed_batches():
+    """The decoders' edge rows: clean, 1 to 10 errors, random words, all
+    0xFF (the largest bit counts of the plain version's products)."""
+    _, cws = _codewords(np.random.default_rng(6), list(range(11)) * 2)
+    _hold(np.concatenate([cws, _blocks("random"), _blocks("all_ff")]))
+
+
+def test_decode_blocks_reads_the_chains_and_the_exports_views():
+    """The strided views kernel I reads in place, as the plain version
+    gets them on the CPU: the chain's [B, rs_dims, 120] and the export's
+    deinterleaved [rs_dims, 120], as uint8 and int32."""
+    rs_dims, B = 4, 3
+    _, cws = _codewords(np.random.default_rng(12),
+                        [0, 3, 9, 1] * B)                 # [B*rs_dims, 120]
+    want_c, want_d = TR.rs_decode_blocks_plain(torch.from_numpy(cws))
+    sf = torch.from_numpy(cws.reshape(B, rs_dims, C.RS_N).transpose(0, 2, 1)
+                          .reshape(B, -1).copy())
+    for dtype in (torch.uint8, torch.int32):
+        view = sf.to(dtype).reshape(B, C.RS_N, rs_dims).transpose(1, 2)
+        c, d = TR.rs_decode_blocks(view)
+        assert c.shape == (B, rs_dims) and d.shape == (B, rs_dims, C.RS_N)
+        assert torch.equal(c.reshape(-1), want_c)
+        assert torch.equal(d.reshape(-1, C.RS_N), want_d)
+        c, d = TR.rs_decode_blocks(TR.deinterleave(sf[1].to(dtype), rs_dims))
+        assert torch.equal(c, want_c[rs_dims:2 * rs_dims])
+        assert torch.equal(d, want_d[rs_dims:2 * rs_dims])
+    with pytest.raises(ValueError, match="120"):
+        TR.rs_decode_blocks(torch.zeros((2, 2, 2, C.RS_N), dtype=torch.int32))
+
+
+def _jax_rs_stage(sf, rs_dims):
+    """The RS stage of the JAX package's chain
+    (viterbi_tpu/models/dab.py:100-113) on superframe bytes, its decode
+    in batches of six rows."""
+    B = sf.shape[0]
+    blocks = jnp.asarray(sf).reshape(B, C.RS_N, rs_dims).transpose(0, 2, 1)
+    count, corrected = _jax_decode(
+        np.asarray(blocks.reshape(B * rs_dims, C.RS_N)))
+    count = jnp.asarray(count).reshape(B, rs_dims)
+    corrected = jnp.asarray(corrected).reshape(B, rs_dims, C.RS_N)
+    errors = jnp.where(jnp.any(count < 0, axis=1), -1, count.sum(axis=1))
+    audio = corrected[:, :, :C.RS_KK].transpose(0, 2, 1).reshape(
+        B, rs_dims * C.RS_KK).astype(jnp.uint8)
+    return np.asarray(audio), np.asarray(errors)
+
+
+@pytest.mark.parametrize("errs", [[0, 0, 0, 0], [0, 2, 5, 1], [1, 9, 0, 2]])
+def test_rs_superframes_plain_matches_the_jax_chain(errs):
+    """The chain's RS stage without kernels, on three superframes of four
+    codewords each (the planted errors in every superframe's codewords),
+    against the JAX chain's stage and golden; and it refuses kernels on
+    the CPU."""
+    from viterbi_tpu_torch.models import dab as TD
+    rs_dims = len(errs)
+    sfs = np.stack([_superframe(errs, seed=s)[1] for s in (1, 2, 3)])
+    audio, errors = TD.rs_superframes(torch.from_numpy(sfs), rs_dims,
+                                      use_kernels=False)
+    want_a, want_e = _jax_rs_stage(sfs, rs_dims)
+    assert audio.dtype == torch.uint8 and errors.dtype == torch.int32
+    assert np.array_equal(audio.numpy(), want_a)
+    assert np.array_equal(errors.numpy(), want_e)
+    for i, sf in enumerate(sfs):
+        g_err, g_out = TG.rs_check_superframe(sf, rs_dims)
+        assert errors[i] == g_err
+        if g_err >= 0:
+            assert np.array_equal(audio[i].numpy(), g_out)
+    same = TD.rs_superframes(torch.from_numpy(sfs), rs_dims)
+    assert torch.equal(same[0], audio) and torch.equal(same[1], errors)
+    with pytest.raises(ValueError, match="CUDA"):
+        TD.rs_superframes(torch.from_numpy(sfs), rs_dims, use_kernels=True)

@@ -21,8 +21,9 @@ interleaved RS codewords (rschecksf.cpp:58-62).
 Symbols go to the device once and every result is a tensor on that
 device. A host array goes to the card where there is one, unless the
 caller names a device. ``use_kernels=None`` takes the Hopper kernels
-(``acs_cuda.decode``: the fused ACS and the checkpoint walk) for symbols
-on a CUDA device and the plain path for symbols on the CPU;
+(``acs_cuda.decode``: the fused ACS and the checkpoint walk; in the
+superframe chain also kernel I, the RS decoder) for symbols on a CUDA
+device and the plain path for symbols on the CPU;
 ``use_kernels=True`` on CPU symbols raises. ``decode_ensemble_sharded``
 runs the chain data-parallel over the ranks of a mesh
 (``parallel.mesh``).
@@ -97,17 +98,20 @@ def decode_frames(flat: torch.Tensor, framebits: int, use_kernels: bool,
     return traceback.chainback_blocked(decisions, framebits, block=block)
 
 
-def rs_superframes(sf: torch.Tensor, rs_dims: int):
+def rs_superframes(sf: torch.Tensor, rs_dims: int,
+                   use_kernels: bool | None = None):
     """The chains' RS stage: uint8[B, rs_dims*120] superframes ->
     (audio uint8[B, rs_dims*110], errors int32[B]). Every superframe is
-    deinterleaved into its codewords and the whole [B * rs_dims, 120]
-    batch decoded at once."""
+    deinterleaved into its codewords, a [B, rs_dims, 120] view, and the
+    whole batch decoded at once: with kernels by kernel I, which reads the
+    view in place (``rs_ops.rs_decode_blocks``), without by its plain
+    version. ``use_kernels=None`` takes the kernel for a superframe batch
+    on a CUDA device."""
     B = sf.shape[0]
     blocks = sf.reshape(B, C.RS_N, rs_dims).transpose(1, 2)
-    count, corrected = rs_ops.rs_decode_blocks(
-        blocks.reshape(B * rs_dims, C.RS_N))
-    count = count.reshape(B, rs_dims)
-    corrected = corrected.reshape(B, rs_dims, C.RS_N)
+    decode = (rs_ops.rs_decode_blocks if want_kernels(use_kernels, sf.device)
+              else rs_ops.rs_decode_blocks_plain)
+    count, corrected = decode(blocks)      # [B, rs_dims], [B, rs_dims, 120]
     any_fail = (count < 0).any(dim=1)
     errors = torch.where(any_fail, -1, count.sum(dim=1)).to(torch.int32)
     audio = corrected[:, :, :C.RS_KK].transpose(1, 2) \
@@ -132,11 +136,11 @@ def decode_audio_superframes(symbols, bitrate_kbps: int,
     syms = on_device(symbols, device)
     B = syms.shape[0]
     flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
-    frame_bytes = decode_frames(flat, cfg.framebits,
-                                want_kernels(use_kernels, syms.device))
+    kernels = want_kernels(use_kernels, syms.device)
+    frame_bytes = decode_frames(flat, cfg.framebits, kernels)
     sf = bytes_to_superframes(
         frame_bytes.reshape(B, SUPERFRAME_FRAMES, cfg.frame_bytes), cfg)
-    return rs_superframes(sf, cfg.rs_dims)
+    return rs_superframes(sf, cfg.rs_dims, kernels)
 
 
 def decode_ensemble_sharded(symbols, bitrate_kbps: int,
@@ -152,7 +156,7 @@ def decode_ensemble_sharded(symbols, bitrate_kbps: int,
     (a tensor or a host array; only this rank's rows go to its device),
     ``B`` divisible by the data-axis size. Each rank runs
     ``decode_audio_superframes`` on its rows (on a card: kernels A and B,
-    then RS in plain torch) on the mesh's device. ``mesh=None`` takes the
+    then kernel I) on the mesh's device. ``mesh=None`` takes the
     job's node mesh. Returns (audio uint8[B, rs_dims*110], errors
     int32[B]) on every rank.
     """

@@ -129,6 +129,8 @@ _ARGTYPES = {
                            _I, _P],
         "acs_words_launch": [_P, _L, _L, _I, _P, _I, _I, _P, _P, _I, _I, _P],
         "tb_words_launch": [_P, _I, _I, _P, _I, _P],
+        "rs_decode_launch": [_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _I,
+                             _P],
     },
     PROBES: {
         "kablate_launch": [_P, _L, _L, _I, _P, _I, _I, _I, _P, _P, _I, _I,
@@ -215,6 +217,7 @@ ACS_REGS = Kernel(MAIN, "acs_regs_launch", "acs_regs")
 TB_WALK = Kernel(MAIN, "tb_walk_launch", "tb_walk")
 ACS_WORDS = Kernel(MAIN, "acs_words_launch", "acs_words")
 TB_WORDS = Kernel(MAIN, "tb_words_launch", "tb_words")
+RS_DECODE = Kernel(MAIN, "rs_decode_launch", "rs_decode")
 KABLATE = Kernel(PROBES, "kablate_launch", "kablate")
 KDTYPE_OP = Kernel(PROBES, "kdtype_op_launch", "kdtype_op")
 KDTYPE_CHAIN = Kernel(PROBES, "kdtype_chain_launch", "kdtype_chain")

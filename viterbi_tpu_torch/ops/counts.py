@@ -1,18 +1,19 @@
-"""The launch counts of kernels A-D. Each wrapper adds one to its
+"""The launch counts of kernels A-D and I. Each wrapper adds one to its
 ``.launches`` where it launches its kernel, and nowhere else; a caller
 sets them to 0 before a path and reads them after it, to show that the
 path went through the kernels."""
 
 from __future__ import annotations
 
-from . import acs_cuda
+from . import acs_cuda, rs
 from . import traceback as tb
 
-#: kernels A-D by their rows' names in chip_smoke.py's kernels line
+#: kernels A-D and I by their rows' names in chip_smoke.py's kernels line
 KERNELS = {"acs_regs": (acs_cuda, "forward_regs"),
            "acs_words": (acs_cuda, "forward"),
            "tb_walk": (tb, "tb_walk"),
-           "tb_words": (tb, "tb_words")}
+           "tb_words": (tb, "tb_words"),
+           "rs_decode": (rs, "rs_decode_blocks")}
 
 
 def zero_launches() -> None:
@@ -21,7 +22,7 @@ def zero_launches() -> None:
 
 
 def launches() -> dict:
-    """Launches of kernels A-D since ``zero_launches``."""
+    """Launches of kernels A-D and I since ``zero_launches``."""
     return {k: getattr(m, n).launches for k, (m, n) in KERNELS.items()}
 
 

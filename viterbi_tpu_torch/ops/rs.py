@@ -20,8 +20,14 @@ cross-check and times both.
 Syndromes and the Chien search are GF(2)-linear in the input bits, so
 both are exact 0/1 matrix products (parity = count mod 2). The operands
 are float32: 0/1 inputs and counts up to 960 are exact there (bf16
-results would round them). There is no hand-written kernel here, as the
-JAX module has none.
+results would round them).
+
+That masked form is the plain version, ``rs_decode_blocks_plain``: about
+340 small launches a call on a card, whatever the batch. On a card
+``rs_decode_blocks`` launches kernel I instead (``csrc/rs_decode.cu``, one
+warp a codeword, the tables in shared memory), once a call, on uint8 or
+int32 codewords laid out with any strides: the JAX package runs the same
+decoder as one jitted program.
 """
 
 from __future__ import annotations
@@ -32,8 +38,12 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from . import _build
 
 _ATO_NP, _IOF_NP = C.gf256_tables()
+#: kernel I's field: the 768-entry antilog table, then index_of
+_KERNEL_TABLES_NP = np.concatenate([_ATO_NP, _IOF_NP]).astype(np.uint8)
+RS_BLOCKS_PER_SM = 8    # kernel I's grid at most; each warp then loops
 
 
 def _bit_matrices():
@@ -143,28 +153,83 @@ def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def _check_blocks(blocks: torch.Tensor) -> None:
+    if blocks.dim() not in (2, 3) or blocks.shape[-1] != C.RS_N:
+        raise ValueError(f"blocks must be [B, {C.RS_N}] or [G, D, "
+                         f"{C.RS_N}], got {list(blocks.shape)}")
+
+
+def rs_decode_blocks_plain(blocks: torch.Tensor):
+    """``rs_decode_blocks`` in plain torch through the reference's tables
+    (``decode_with_field``), on any device: kernel I's plain version."""
+    _check_blocks(blocks)
+    lead = blocks.shape[:-1]
+    count, corrected = decode_with_field(
+        blocks.reshape(-1, C.RS_N), _Table(_device_tables(blocks.device)))
+    return count.reshape(lead), corrected.reshape(*lead, C.RS_N)
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_KERNEL_TABLES_NP).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _grid_cap(index: int) -> int:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * RS_BLOCKS_PER_SM
+
+
 def rs_decode_blocks(blocks: torch.Tensor):
     """Decode a batch of shortened RS(120,110) codewords.
 
-    ``blocks``: integer tensor [B, 120] of byte values, on any device.
-    Returns ``(count, corrected)`` on that device:
+    ``blocks``: integer tensor [B, 120] of byte values, or [G, D, 120]
+    (D codewords a superframe, as the chain hands them), any strides.
+    Returns ``(count, corrected)`` on its device, shaped by the leading
+    dimensions:
       * count int32[B]: corrected byte errors per codeword, or -1
       * corrected int32[B, 120]: corrected codewords (unchanged where
         count is -1 or 0).
     Bit-exact against ``golden.rs_decode_codeword`` for every codeword.
+
+    On a CUDA tensor (uint8 or int32, read in place through its strides)
+    this launches kernel I, and ``rs_decode_blocks.launches`` counts the
+    launches; on a CPU tensor it is ``rs_decode_blocks_plain``.
     """
-    return decode_with_field(blocks, _Table(_device_tables(blocks.device)))
+    if blocks.device.type == "cpu":
+        return rs_decode_blocks_plain(blocks)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"rs_decode_blocks: unsupported device "
+                         f"{blocks.device}")
+    _check_blocks(blocks)
+    elem = {torch.uint8: 1, torch.int32: 4}.get(blocks.dtype)
+    if elem is None:
+        raise TypeError(f"rs_decode_blocks: kernel I reads uint8 or int32 "
+                        f"codewords, got {blocks.dtype}")
+    lead = blocks.shape[:-1]
+    view = blocks if blocks.dim() == 3 else blocks.unsqueeze(1)
+    G, D = view.shape[0], view.shape[1]
+    count = torch.empty(lead, dtype=torch.int32, device=blocks.device)
+    corrected = torch.empty((*lead, C.RS_N), dtype=torch.int32,
+                            device=blocks.device)
+    if G * D == 0:
+        return count, corrected
+    _build.RS_DECODE.launch(
+        blocks.device, view.data_ptr(), elem, G * D, D, view.stride(0),
+        view.stride(1), view.stride(2), _kernel_tables(blocks.device)
+        .data_ptr(), count.data_ptr(), corrected.data_ptr(),
+        _grid_cap(blocks.device.index))
+    rs_decode_blocks.launches += 1
+    return count, corrected
 
 
-def decode_with_field(blocks: torch.Tensor, gf):
-    """``rs_decode_blocks`` over the field arithmetic ``gf`` (``mul``,
-    ``inv``, ``pow_alpha``, ``root_powers`` on int64 tensors of byte
-    values): the tables here, the bitwise form in ``probes.rsform``."""
-    if blocks.dim() != 2 or blocks.shape[1] != C.RS_N:
-        raise ValueError(f"blocks must be [B, {C.RS_N}], "
-                         f"got {list(blocks.shape)}")
-    T = _device_tables(blocks.device)
-    data = blocks.to(torch.int64)
+rs_decode_blocks.launches = 0
+
+
+def _locate(data: torch.Tensor, gf, T: dict):
+    """Syndromes, Berlekamp-Massey and the Chien search of int64 codewords
+    [B, 120]: (s [B, 10], syn_zero [B], lambda [B, 11], deg_lambda [B],
+    is_root [B, 255], field element i + 1 at column i)."""
     B, NR = data.shape[0], C.RS_NROOTS
 
     # ---- syndromes (bit-matrix product) ----------------------------------
@@ -199,6 +264,47 @@ def decode_with_field(blocks: torch.Tensor, gf):
     # degree d has at most d.
     qbits = _gf2_matmul(_byte_bits(lam, T["bit"]), T["chien"])   # [B, 2040]
     is_root = qbits.reshape(B, C.RS_NN, 8).sum(dim=-1) == 0
+    return s, syn_zero, lam, deg_lambda, is_root
+
+
+def decoder_work(blocks: torch.Tensor) -> dict:
+    """What the reference's scalar decoder (``golden.rs_decode_codeword``)
+    needs beyond the syndromes for each codeword of ``blocks`` [B, 120],
+    as kernel I's bound counts it: ``dirty`` (syndromes not all zero),
+    ``deg_lambda``, ``terms`` (lambda's nonzero coefficients past the
+    first, the terms its Chien search evaluates at an element), ``chien``
+    (the field elements that search visits, up to its deg_lambda-th root,
+    or all 255 where it finds fewer),
+    ``correctable`` (dirty, and as many roots as deg_lambda) and
+    ``forney`` (the roots past the shortening pad that Forney evaluates,
+    where correctable). Plain torch on the blocks' device."""
+    _check_blocks(blocks)
+    data = blocks.reshape(-1, C.RS_N).to(torch.int64)
+    T = _device_tables(blocks.device)
+    _, syn_zero, lam, deg_lambda, is_root = _locate(data, _Table(T), T)
+    n_roots = is_root.sum(dim=1)
+    last = torch.where(is_root, T["i_all"], 0).amax(dim=1)
+    dirty = ~syn_zero
+    correctable = dirty & (n_roots == deg_lambda)
+    past_pad = (is_root & (T["i_all"] >= C.RS_PAD + 1)).sum(dim=1)
+    return {"dirty": dirty, "deg_lambda": deg_lambda,
+            "terms": (lam[:, 1:] != 0).sum(dim=1),
+            "chien": torch.where(n_roots == deg_lambda, last, C.RS_NN),
+            "correctable": correctable,
+            "forney": torch.where(correctable, past_pad, 0)}
+
+
+def decode_with_field(blocks: torch.Tensor, gf):
+    """``rs_decode_blocks`` over the field arithmetic ``gf`` (``mul``,
+    ``inv``, ``pow_alpha``, ``root_powers`` on int64 tensors of byte
+    values): the tables here, the bitwise form in ``probes.rsform``."""
+    if blocks.dim() != 2 or blocks.shape[1] != C.RS_N:
+        raise ValueError(f"blocks must be [B, {C.RS_N}], "
+                         f"got {list(blocks.shape)}")
+    T = _device_tables(blocks.device)
+    data = blocks.to(torch.int64)
+    B, NR = data.shape[0], C.RS_NROOTS
+    s, syn_zero, lam, deg_lambda, is_root = _locate(data, gf, T)
     count = is_root.sum(dim=1)
     correctable = count == deg_lambda
     # the ten smallest root indices in ascending order; 999 fills the rest

@@ -161,7 +161,12 @@ def run_ranks(fn, world_size: int, args: tuple = (),
             p.start()
         deadline = time.monotonic() + timeout
         try:
-            while any(p.exitcode is None for p in procs):
+            while True:
+                # one snapshot: a rank may exit between two reads of
+                # exitcode, and joining one that has ended returns at once
+                alive = [p for p in procs if p.exitcode is None]
+                if not alive:
+                    break
                 bad = [(r, p.exitcode) for r, p in enumerate(procs)
                        if p.exitcode not in (None, 0)]
                 if bad:
@@ -170,7 +175,7 @@ def run_ranks(fn, world_size: int, args: tuple = (),
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"{world_size} ranks not done within "
                                        f"{timeout:.0f} s")
-                next(p for p in procs if p.exitcode is None).join(0.05)
+                alive[0].join(0.05)
             bad = [(r, p.exitcode) for r, p in enumerate(procs)
                    if p.exitcode != 0]
             if bad:

@@ -1,13 +1,15 @@
-"""Two exact forms of the RS decoder's GF(256) arithmetic, timed against
-each other on the card.
+"""Two exact forms of the RS decoder's GF(256) arithmetic and kernel I,
+timed against each other on the card.
 
-``ops.rs`` computes the field through the reference's log/antilog tables
-(a gather is one small launch on a GPU). The JAX package computes it
-gather-free, for a machine where gathers are slow: a carryless multiply,
-the Fermat inverse and square-and-multiply powers. That bitwise form is
-kept here, outside the decode path, as the cross-check of the tables and
-for this timing. It launches no hand-written kernel: both forms are
-plain PyTorch, as the JAX module has no kernel either.
+``ops.rs``'s plain version computes the field through the reference's
+log/antilog tables (a gather is one small launch on a GPU). The JAX
+package computes it gather-free, for a machine where gathers are slow: a
+carryless multiply, the Fermat inverse and square-and-multiply powers.
+That bitwise form is kept here, outside the decode path, as the
+cross-check of the tables and for this timing. Both are plain PyTorch,
+some 340 launches a call; the third row is kernel I
+(``ops.rs.rs_decode_blocks`` on the card, ``csrc/rs_decode.cu``), one
+launch, held bit for bit against both.
 
 Usage: python -m viterbi_tpu_torch.probes.rsform [--codewords N] [--iters N]
 """
@@ -97,13 +99,16 @@ class Bitwise:
 
 
 def rs_decode_blocks_bitwise(blocks: torch.Tensor):
-    """``ops.rs.rs_decode_blocks`` with the bitwise field: the same
+    """``ops.rs.rs_decode_blocks_plain`` with the bitwise field: the same
     decoder, bit for bit the same result."""
     return rs_ops.decode_with_field(blocks, Bitwise)
 
 
-FORMS = {"table": rs_ops.rs_decode_blocks,
+FORMS = {"table": rs_ops.rs_decode_blocks_plain,
          "bitwise": rs_decode_blocks_bitwise}
+#: the rows of the table: both field forms, then kernel I (on a CPU
+#: tensor its plain version)
+DECODERS = {**FORMS, "kernel": rs_ops.rs_decode_blocks}
 
 
 def corrupt_mix(rng, base, frac, max_errs, uncorrectable=0):
@@ -124,9 +129,11 @@ def corrupt_mix(rng, base, frac, max_errs, uncorrectable=0):
 
 
 def run(codewords: int = CODEWORDS, iters: int = 3) -> list[dict]:
-    """Both forms on every mix: equal to each other, counts as planted,
-    three codewords equal to the golden model; ms and device launches."""
+    """Every form on every mix: equal to each other, counts as planted,
+    three codewords equal to the golden model; ms, kernel I's launches
+    (its wrapper's count) and device launches (the profiler's) a call."""
     dev = _common.require_card()
+    kernel = DECODERS["kernel"]
     rng = np.random.default_rng(5)
     clean = np.tile(golden.rs_encode_many(rng.integers(
         0, 256, (256, C.RS_KK), dtype=np.uint8)).astype(np.int32),
@@ -136,15 +143,26 @@ def run(codewords: int = CODEWORDS, iters: int = 3) -> list[dict]:
         cws, nerr = corrupt_mix(rng, clean, frac, max_errs, bad)
         blocks = torch.from_numpy(cws).to(dev)
         results = {}
-        for form, decode in FORMS.items():
+        for form, decode in DECODERS.items():
+            # kernel I's launches a call, from its counter over the result's
+            # call and the timed ones (the warm-up among them)
+            before = kernel.launches
             results[form] = decode(blocks)
+            ms = _common.device_ms(lambda: decode(blocks), iters, 1)
+            per_call, rem = divmod(kernel.launches - before, iters + 2)
+            if rem:
+                raise AssertionError(f"{mix} {form}: kernel I x "
+                                     f"{kernel.launches - before} in "
+                                     f"{iters + 2} calls")
             rows.append({
-                "mix": mix, "form": form,
-                "ms": _common.device_ms(lambda: decode(blocks), iters, 1),
+                "mix": mix, "form": form, "ms": ms,
+                "kernel_launches": per_call,
                 "launches": _common.count_launches(lambda: decode(blocks))})
-        (c_t, d_t), (c_b, d_b) = results["table"], results["bitwise"]
-        if not (torch.equal(c_t, c_b) and torch.equal(d_t, d_b)):
-            raise AssertionError(f"{mix}: the two forms disagree")
+        c_t, d_t = results["table"]
+        for form, (c, d) in results.items():
+            if not (torch.equal(c, c_t) and torch.equal(d, d_t)):
+                raise AssertionError(f"{mix}: the {form} form differs from "
+                                     f"the table form")
         count, fixed = c_t.cpu().numpy(), nerr <= 5
         if not (np.array_equal(count[fixed], nerr[fixed])
                 and (count[~fixed] == -1).all()
@@ -166,11 +184,12 @@ def main(argv=None) -> list[dict]:
     _common.require_card()
     rows = run(args.codewords, args.iters)
     print(f"rs_decode_blocks on {_common.card_line()}: {args.codewords} "
-          f"codewords; forms equal, counts as planted")
+          f"codewords; forms and kernel I equal, counts as planted")
     for r in rows:
         print(f"  {r['mix']:17s} {r['form']:8s} {r['ms']:8.2f} ms  "
               f"{args.codewords / r['ms'] / 1e3:6.2f} M codewords/s  "
-              f"{r['launches']} launches")
+              f"{r['launches']} launches ({r['kernel_launches']} of kernel "
+              f"I)")
     return rows
 
 
