@@ -8,7 +8,8 @@ Phases (each raises on failure, so the exit code is non-zero):
   2. build: compile the decode kernels and the probes' kernels from
      viterbi_tpu_torch/csrc with nvcc, both libraries at the same time;
      kernels A, C and E, in both forms (one lane a frame and four), must
-     spill nothing;
+     spill nothing; kernel I must spill nothing, and in both syndrome
+     forms use at most 64 registers a thread;
   3. kernels: kernel A (fused register-exchange ACS) and kernel B
      (checkpoint walk), kernel C (decisions) and kernel D (decision-word
      walk) against their plain torch versions on the card, bit for bit,
@@ -48,22 +49,26 @@ Phases (each raises on failure, so the exit code is non-zero):
      them;
   8. superframe path: 2048 DAB+ audio superframes at 128 kbit/s (10240
      frames, 32768 RS codewords) through
-     models.dab.decode_audio_superframes on the card: kernels A, B and I
+     models.dab.decode_audio_superframes on the card: kernels A and B
+     and kernel I's superframes entry (once: the RS stage is one launch)
      must be launched, the audio equal to what was encoded wherever the
      error count is not -1, audio and counts equal to the golden model
      and to the CPU's plain path on subsets, and on the whole batch to
      the same call through plain versions only on the card; kernels A
-     and B against their plain versions on the path's own symbols, and
-     kernel I (RS) on its own codewords, the chain's strided uint8 view;
-     rates and the split Viterbi / assembly / RS, RS in at most two
-     device launches;
+     and B against their plain versions on the path's own symbols;
+     kernel I on the path's own uint8 superframes against its plain
+     version (both entries, both fills, and the probe's table syndrome
+     form); rates and the split Viterbi / assembly / RS stage;
   9. RS: rs_check_superframe through the API for rs_dims 1, 4, 16, 48,
      clean, corrected and -1 with the partial prefix write, against
-     golden, kernel I once a call; each call's ms and device launches,
-     and the same with the plain decode in kernel I's place; then
-     probes.rsform: the table and the bitwise form of the field
-     arithmetic and kernel I at 65536 codewords on three error mixes,
-     all three equal and timed;
+     golden, kernel I once a call and at most three device operations
+     (the copy up, the kernel, the copy back); kernel I against its plain
+     version on every case; each call's ms; then probes.rsform: the table
+     and the bitwise form of the field arithmetic and kernel I's
+     codewords entry in both syndrome forms at 65536 codewords on three
+     error mixes, all four equal and timed; probes.rsphases: kernel I's
+     steps timed by the card's clock in each block, its output equal to
+     the plain version;
  10. EEP path: decode_punctured_frames at 128 kbit/s for EEP 3-A and
      2-B, and decode_profile_frames with a four-segment row, against
      golden on a subset and, on the whole batch, against the plain path
@@ -127,12 +132,13 @@ Phases (each raises on failure, so the exit code is non-zero):
      at its effective overlap).
 Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
-before it lists the nine kernels as JSON, each with its launches on its
-path (A to D and I also by path, phases 8-18 included), its time beside
-its plain version's, and its bound: the larger of
-the bytes it must move over 3.35 TB/s and its integer operations (the
+before it lists the ten kernels as JSON, each with its launches on its
+path (A to D and I also by path, phases 8-18 included; I by both its
+entries), its time beside its plain version's, and its bound: the larger
+of the bytes it must move over 3.35 TB/s and its integer operations (the
 shortest sequence that computes the step; an add feeding a min counts as
-one, as the card fuses them) over the card's issue rate.
+one, as the card fuses them) over the card's issue rate, or for kernel
+I's syndromes the binary product over the int8 tensor rate.
 """
 
 from __future__ import annotations
@@ -211,6 +217,7 @@ GROUP_TIMEOUT_S = 120   # a rank's longest wait for a peer
 HBM_BYTES_S = 3.35e12
 SMS = 132
 INT_LANES, FP32_LANES = 64, 128
+INT8_TENSOR_OPS_S = 1979e12   # dense int8 tensor rate (data sheet)
 # Integer operations per trellis step and frame for the bounds, counted
 # from csrc/trellis.cuh and the kernels as the shortest instruction
 # sequence the card has: an add that feeds a min or max is one operation
@@ -241,9 +248,12 @@ OPS_PER_BIT_D = 9       # word select, 2 shifts + 2 masks, 2 to place, 2 state
 # Kernel I: the operations the reference's scalar decoder
 # (golden.rs_decode_codeword) needs on this run's codewords, each a step
 # through the tables as csrc/rs_decode.cu takes it (a product of two logs
-# is an add and a lookup). Syndromes: a byte's log lookup, then for each of
-# the ten roots an exponent add, an antilog lookup and an XOR (the
-# exponents i * (119 - j) are the same for every codeword). A codeword
+# is an add and a lookup). Syndromes through the tables: a byte's log
+# lookup, then for each of the ten roots an exponent add, an antilog
+# lookup and an XOR (the exponents i * (119 - j) are the same for every
+# codeword); kernel I takes them instead as the 960 x 80 GF(2) product on
+# the tensor cores, an AND and an add a bit pair, at the int8 tensor rate
+# (OPS_RS_SYND_TENSOR a codeword). A codeword
 # whose syndromes are not all zero adds Berlekamp-Massey's ten rounds (per
 # round r: r products of 3 with their XORs, then 11 of x * b(x)'s and 11
 # swapped coefficients, 990 in all) and the Chien search: at each element
@@ -255,27 +265,32 @@ OPS_PER_BIT_D = 9       # word select, 2 shifts + 2 masks, 2 to place, 2 state
 # Forney at their loops' lengths, where the reference skips a zero
 # coefficient's term.
 OPS_RS_SYND_BYTE = 1 + 10 * 3
+OPS_RS_SYND_TENSOR = 2 * 960 * 80
 OPS_RS_BM = 990
 OPS_RS_TERM = 3
 OPS_RS_PRODUCT = 4
 OPS_RS_VALUE = 5
 
 
-def rs_decoder_ops(blocks) -> int:
-    """The integer operations above on ``blocks`` [..., 120], from what
-    the reference's decoder does on each (ops.rs.decoder_work)."""
+def rs_decoder_ops(blocks) -> dict:
+    """The operations above on ``blocks`` [..., 120], from what the
+    reference's decoder does on each (ops.rs.decoder_work): the syndromes'
+    through the tables (``synd_table``, integer) and as the tensor cores'
+    product (``synd_tensor``), and the dirty codewords' (``dirty``,
+    integer)."""
     from viterbi_tpu_torch import constants as C
     from viterbi_tpu_torch.ops import rs as rs_ops
     w = rs_ops.decoder_work(blocks)
     d = w["deg_lambda"]
+    n = d.numel()
     den_terms = (d.clamp(max=9) & ~1) // 2 + 1
-    ops = (w["deg_lambda"].numel() * C.RS_N * OPS_RS_SYND_BYTE
-           + (w["dirty"] * (OPS_RS_BM + OPS_RS_TERM * w["chien"]
+    dirty = ((w["dirty"] * (OPS_RS_BM + OPS_RS_TERM * w["chien"]
                             * w["terms"])).sum()
-           + (w["correctable"] * OPS_RS_PRODUCT * d * (d + 1) // 2).sum()
-           + (w["forney"] * (OPS_RS_TERM * (d + den_terms)
-                             + OPS_RS_VALUE)).sum())
-    return int(ops)
+             + (w["correctable"] * OPS_RS_PRODUCT * d * (d + 1) // 2).sum()
+             + (w["forney"] * (OPS_RS_TERM * (d + den_terms)
+                               + OPS_RS_VALUE)).sum())
+    return {"synd_table": n * C.RS_N * OPS_RS_SYND_BYTE,
+            "synd_tensor": n * OPS_RS_SYND_TENSOR, "dirty": int(dirty)}
 
 
 def card_line() -> str:
@@ -296,15 +311,16 @@ def sm_clock_hz() -> float:
 
 
 def bound(nbytes: float, int_ops: float, clock_hz: float,
-          fp_ops: float = 0.0) -> dict:
+          fp_ops: float = 0.0, tensor_ops: float = 0.0) -> dict:
     """The least time the card could take, as a kernel row's bound keys:
     ``bound_ms`` is the larger of the bytes over the memory rate
     (``bound_bytes_ms``) and the operations over the issue rate of their
-    type, integer and float pipes side by side (``bound_ops_ms``);
-    ``bound_by`` says which."""
+    type, integer, float and integer tensor pipes side by side
+    (``bound_ops_ms``); ``bound_by`` says which."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_S
     by_ops = 1e3 * max(int_ops / (INT_LANES * SMS * clock_hz),
-                       fp_ops / (FP32_LANES * SMS * clock_hz))
+                       fp_ops / (FP32_LANES * SMS * clock_hz),
+                       tensor_ops / INT8_TENSOR_OPS_S)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops}
@@ -660,10 +676,9 @@ def superframe_path(dev, tag, check):
     from viterbi_tpu_torch import golden
     from viterbi_tpu_torch.harness import channel
     from viterbi_tpu_torch.models import dab
-    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import counts
     from viterbi_tpu_torch.ops import rs as rs_ops
-    from viterbi_tpu_torch.ops import traceback as tb
-    from viterbi_tpu_torch.probes import _common
+    from viterbi_tpu_torch.probes import _common, rsform
     cfg = dab.SubchannelConfig(SF_KBPS)
     t0 = time.perf_counter()
     audio, syms = channel.make_superframes(B_SF, SF_KBPS, seed=11,
@@ -672,17 +687,16 @@ def superframe_path(dev, tag, check):
     print(f"superframes: {B_SF} x 5 frames of {cfg.framebits} bits, "
           f"{B_SF * cfg.rs_dims} codewords, {syms.nbytes / 1e6:.0f} MB of "
           f"symbols, made in {time.perf_counter() - t0:.1f} s on the host")
-    acs_cuda.forward_regs.launches = 0
-    tb.tb_walk.launches = 0
-    rs_ops.rs_decode_blocks.launches = 0
+    counts.zero_launches()
     got_audio, got_errors = dab.decode_audio_superframes(syms, SF_KBPS)
     torch.cuda.synchronize()
-    launches = {"acs_regs": acs_cuda.forward_regs.launches,
-                "tb_walk": tb.tb_walk.launches,
-                "rs_decode": rs_ops.rs_decode_blocks.launches}
+    launches = counts.launches()
     print(f"superframe path launches: {launches}")
-    for name, count in launches.items():
-        assert count > 0, f"the superframe path never launched {name}"
+    for name in ("acs_regs", "tb_walk", "rs_superframes"):
+        assert launches[name] > 0, f"the superframe path never launched {name}"
+    # the RS stage is one launch of kernel I's superframes entry
+    assert launches["rs_superframes"] == 1 and launches["rs_decode"] == 0, \
+        launches
     assert got_audio.is_cuda and got_errors.is_cuda
     assert got_audio.shape == (B_SF, cfg.rs_dims * C.RS_KK)
     assert got_audio.dtype == torch.uint8 and got_errors.shape == (B_SF,)
@@ -729,30 +743,65 @@ def superframe_path(dev, tag, check):
     t0 = time.perf_counter()
     hold_path_kernels(dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1),
                       cfg.framebits, check, "superframe path")
-    # kernel I on the path's own codewords: the chain's [B, rs_dims, 120]
-    # view of its superframes, read in place
+    # kernel I on the path's own superframes, both entries: the chain's
+    # uint8 superframes as they are (and the export's zero fill), and the
+    # codewords entry on their [B, rs_dims, 120] view; the probe's table
+    # syndrome form on the same superframes
     frame_bytes = dab.decode_frames(
         dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1), cfg.framebits, True)
     sf_bytes = dab.bytes_to_superframes(
         frame_bytes.reshape(B_SF, dab.SUPERFRAME_FRAMES, cfg.frame_bytes),
         cfg)
+    what = (f"superframe path, {B_SF} superframes of {cfg.rs_dims} "
+            f"codewords")
+    # kernel I's device time a launch inside a replayed CUDA graph (launch
+    # to launch, its wrapper's 30-50 us on the host would hide it), and
+    # launch to launch as a caller sees it
+    def entry(fn):
+        return lambda: fn(sf_bytes, cfg.rs_dims, zero_after_fail=False)
+
+    rs_got = entry(rs_ops.rs_check_superframes)()
+    rs_ms = _common.graph_ms(entry(rs_ops.rs_check_superframes), 50)
+    rs_call_ms = cuda_ms(entry(rs_ops.rs_check_superframes), 20)[0]
+    rs_plain_ms, rs_want = cuda_ms(entry(rs_ops.rs_check_superframes_plain),
+                                   3)
+    table_got = entry(rsform.rs_check_superframes_table_synd)()
+    table_ms = _common.graph_ms(
+        entry(rsform.rs_check_superframes_table_synd), 50)
+    for zero in (False, True):
+        want = rs_want if not zero else rs_ops.rs_check_superframes_plain(
+            sf_bytes, cfg.rs_dims, zero_after_fail=True)
+        got = rs_got if not zero else rs_ops.rs_check_superframes(
+            sf_bytes, cfg.rs_dims, zero_after_fail=True)
+        table = table_got if not zero else \
+            rsform.rs_check_superframes_table_synd(
+                sf_bytes, cfg.rs_dims, zero_after_fail=True)
+        for g, t, w, part in zip(got, table, want,
+                                 ("errors", "audio", "n_ok")):
+            check("rs_decode", g, w, f"{what} {part}, zero_after_fail={zero}")
+            check("rs_synd_table", t, w,
+                  f"{what} {part}, zero_after_fail={zero}")
+    assert torch.equal(rs_got[1], got_audio) and \
+        torch.equal(rs_got[0], got_errors), "kernel I != the chain's stage"
     blocks = sf_bytes.reshape(B_SF, C.RS_N, cfg.rs_dims).transpose(1, 2)
-    rs_ms, rs_got = cuda_ms(lambda: rs_ops.rs_decode_blocks(blocks), 20)
-    rs_plain_ms, rs_want = cuda_ms(
-        lambda: rs_ops.rs_decode_blocks_plain(blocks), 3)
-    for g, w, part in zip(rs_got, rs_want, ("count", "corrected")):
-        check("rs_decode", g, w, f"superframe path, {blocks.shape[0]} x "
-              f"{blocks.shape[1]} codewords (view strides "
-              f"{tuple(blocks.stride())}, {blocks.dtype}) {part}")
-    count = rs_got[0].reshape(-1)
-    rs_mix = {"codewords": count.numel(),
+    cw_got = rs_ops.rs_decode_blocks(blocks)
+    cw_ms = _common.graph_ms(lambda: rs_ops.rs_decode_blocks(blocks), 50)
+    cw_want = rs_ops.rs_decode_blocks_plain(blocks)
+    for g, w, part in zip(cw_got, cw_want, ("count", "corrected")):
+        check("rs_decode", g, w, f"{what}, codewords entry on the view "
+              f"(strides {tuple(blocks.stride())}) {part}")
+    count = cw_got[0].reshape(-1)
+    rs_mix = {"superframes": B_SF, "codewords": count.numel(),
               "dirty": int((count != 0).sum()),
               "roots": int(count.clamp(min=0).sum()),
               "uncorrectable": int((count < 0).sum()),
-              "in_bytes": blocks.element_size(),
               "ops": rs_decoder_ops(blocks)}
-    print(f"superframe path: kernel I bit-identical to its plain version on "
-          f"its {count.numel()} codewords ({rs_mix})")
+    print(f"superframe path: kernel I (both entries, both syndrome forms) "
+          f"bit-identical to its plain version on its {B_SF} superframes "
+          f"({rs_mix}); in a replayed graph the superframes entry "
+          f"{rs_ms:.4f} ms a launch, with the table syndromes "
+          f"{table_ms:.4f} ms, the codewords entry on the view {cw_ms:.4f} "
+          f"ms; launch to launch the superframes entry {rs_call_ms:.4f} ms")
     plain_a, plain_e = dab.decode_audio_superframes(dsyms, SF_KBPS,
                                                     use_kernels=False)
     assert torch.equal(plain_a, got_audio) and \
@@ -769,50 +818,54 @@ def superframe_path(dev, tag, check):
     flat = dsyms.reshape(B_SF * dab.SUPERFRAME_FRAMES, -1)
     vit_ms, frame_bytes = cuda_ms(
         lambda: dab.decode_frames(flat, cfg.framebits, True), 5)
-    # assembly: the superframes and their codewords are views of the frame
-    # bytes; what the RS stage adds around kernel I (the error sums, the
-    # audio's interleave) is timed as the stage less the kernel
+    # assembly: the superframes are views of the frame bytes; the RS stage
+    # is kernel I's one launch, timed through the chain's own call
     stage_ms, _ = cuda_ms(lambda: dab.rs_superframes(dab.bytes_to_superframes(
         frame_bytes.reshape(B_SF, dab.SUPERFRAME_FRAMES, cfg.frame_bytes),
         cfg), cfg.rs_dims, True), 20)
-    rs_launches = _common.count_launches(
-        lambda: rs_ops.rs_decode_blocks(blocks))
+    counts.zero_launches()
     stage_launches = _common.count_launches(
         lambda: dab.rs_superframes(sf_bytes, cfg.rs_dims, True))
-    assert rs_launches <= 2, f"RS took {rs_launches} launches a call"
+    stage_counts = counts.launches()
+    assert stage_counts["rs_superframes"] == 1 and \
+        stage_counts["rs_decode"] == 0, stage_counts
+    assert stage_launches is not None and stage_launches <= 1, \
+        f"the RS stage took {stage_launches} device launches"
     print(f"{tag} superframe path B={B_SF} at {SF_KBPS} kbit/s: "
           f"{B_SF / e2e_s:.1f} superframes/s end to end (median "
           f"{e2e_s * 1e3:.2f} ms of 3), {B_SF / res_ms * 1e3:.1f} "
           f"superframes/s with the symbols resident ({res_ms:.3f} ms); "
-          f"split Viterbi {vit_ms:.3f} ms, assembly "
-          f"{stage_ms - rs_ms:.3f} ms, RS {rs_ms:.4f} ms in {rs_launches} "
-          f"launches (kernel I; the RS stage {stage_ms:.3f} ms in "
-          f"{stage_launches} launches; the plain version {rs_plain_ms:.2f} "
-          f"ms)")
-    rs_row = {"ms": rs_ms, "plain_ms": rs_plain_ms, "mix": rs_mix}
+          f"split Viterbi {vit_ms:.3f} ms, assembly 0 (views), RS stage "
+          f"{stage_ms:.4f} ms launch to launch in {stage_launches} device "
+          f"launch (kernel I in a graph {rs_ms:.4f} ms, with the table "
+          f"syndromes {table_ms:.4f} ms; the plain version "
+          f"{rs_plain_ms:.2f} ms)")
+    rs_row = {"ms": rs_ms, "plain_ms": rs_plain_ms, "mix": rs_mix,
+              "table_ms": table_ms, "stage_ms": stage_ms}
     return launches, (syms, out_a, out_e), rs_row
 
 
-def rs_export(tag) -> dict:
+def rs_export(tag, check) -> dict:
     """Phase 9a: rs_check_superframe through the API against golden, each
-    call's ms and device launches, and the same call with the plain
-    decode in kernel I's place (what the export ran before kernel I).
-    Returns kernel I's launches a call."""
+    call's ms and device launches (one kernel and a copy each way), and
+    kernel I's superframes entry against its plain version on every case's
+    superframe on the card. Returns kernel I's launches a call."""
+    import torch
     import viterbi_tpu_torch
     from viterbi_tpu_torch import constants as C
     from viterbi_tpu_torch import golden
+    from viterbi_tpu_torch.ops import counts
     from viterbi_tpu_torch.ops import rs as rs_ops
     from viterbi_tpu_torch.probes import _common
     rung("cuda_fused")
     rng = np.random.default_rng(9)
-    kernel = rs_ops.rs_decode_blocks
     per_call = None
     for rs_dims in (1, 4, 16, 48):
         cases = {"clean": [0] * rs_dims,
                  "corrected": [(3 * j) % 6 for j in range(rs_dims)],
                  "uncorrectable": [(j + 1) % 4 if j != rs_dims // 2 else 9
                                    for j in range(rs_dims)]}
-        times = {}
+        times, k_ms = {}, {}
         for case, errs in cases.items():
             cws = golden.rs_encode_many(rng.integers(
                 0, 256, (rs_dims, C.RS_KK), dtype=np.uint8))
@@ -828,15 +881,16 @@ def rs_export(tag) -> dict:
                                                              buf)
 
             runs = []
-            kernel.launches = 0
+            counts.zero_launches()
             for _ in range(5):
                 buf[:] = bytes([0xEE]) * len(buf)
                 t0 = time.perf_counter()
                 ret = call()
                 runs.append(time.perf_counter() - t0)
-            per_call, rem = divmod(kernel.launches, len(runs))
-            assert (per_call, rem) == (1, 0), \
-                f"kernel I x {kernel.launches} in {len(runs)} calls"
+            n = counts.launches()
+            per_call, rem = divmod(n["rs_superframes"], len(runs))
+            assert (per_call, rem) == (1, 0) and n["rs_decode"] == 0, \
+                f"kernel I x {n} in {len(runs)} calls"
             times[case] = statistics.median(runs) * 1e3
             assert ret == g_err, f"rs_dims {rs_dims} {case}: {ret} != {g_err}"
             assert (ret == -1) == (case == "uncorrectable")
@@ -850,47 +904,59 @@ def rs_export(tag) -> dict:
                 want = want.reshape(-1)
             assert np.array_equal(np.frombuffer(bytes(buf), np.uint8),
                                   want), f"rs_dims {rs_dims} {case}: bytes"
-        # the corrected case's launches a call, with kernel I and with the
-        # plain decode in its place
+            # the entry itself against its plain version, both fills
+            dsf = torch.from_numpy(sf).cuda()[None]
+            for zero in (True, False):
+                got = rs_ops.rs_check_superframes(dsf, rs_dims,
+                                                  zero_after_fail=zero)
+                want_p = rs_ops.rs_check_superframes_plain(
+                    dsf, rs_dims, zero_after_fail=zero)
+                for g, w, part in zip(got, want_p, ("errors", "out", "n_ok")):
+                    check("rs_decode", g, w, f"export rs_dims {rs_dims} "
+                          f"{case} {part}, zero_after_fail={zero}")
+            k_ms[case] = _common.graph_ms(lambda: rs_ops.rs_check_superframes(
+                dsf, rs_dims, zero_after_fail=True), 100)
+        # the corrected case's device operations a call: the copy up,
+        # kernel I, the copy back
         n_dev = _common.count_launches(call)
-        rs_ops.rs_decode_blocks = rs_ops.rs_decode_blocks_plain
-        try:
-            plain_runs = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                assert call() == ret
-                plain_runs.append(time.perf_counter() - t0)
-            n_plain = _common.count_launches(call)
-        finally:
-            rs_ops.rs_decode_blocks = kernel
+        assert n_dev is not None and n_dev <= 3, \
+            f"the export took {n_dev} device operations a call"
         print(f"{tag} rs_check_superframe rs_dims={rs_dims}: clean, "
-              f"corrected and -1 (prefix of {rs_dims // 2}) equal to golden; "
-              + ", ".join(f"{c} {ms:.3f} ms" for c, ms in times.items())
-              + f" a call, {n_dev} device launches (kernel I once); with "
-              f"the plain decode {statistics.median(plain_runs) * 1e3:.3f} "
-              f"ms in {n_plain} launches")
-    return {"rs_decode": per_call}
+              f"corrected and -1 (prefix of {rs_dims // 2}) equal to golden "
+              f"and kernel I to its plain version; "
+              + ", ".join(f"{c} {ms:.4f} ms" for c, ms in times.items())
+              + f" a call, {n_dev} device operations (kernel I once); "
+              f"the kernel in a replayed graph " + ", ".join(
+                  f"{c} {ms:.4f} ms" for c, ms in k_ms.items()))
+    return {"rs_superframes": per_call}
 
 
 def rs_forms(tag) -> dict:
     """Phase 9b: the table form and the bitwise form of the field
-    arithmetic and kernel I on three error mixes (probes.rsform, which
-    raises unless all three are equal, count as planted and agree with
-    golden); kernel I's launches a call, counted on every mix."""
-    from viterbi_tpu_torch.probes import rsform
+    arithmetic and kernel I's codewords entry in its two syndrome forms on
+    three error mixes (probes.rsform, which raises unless all four are
+    equal, count as planted and agree with golden); kernel I's launches a
+    call, counted on every mix; then kernel I's steps (probes.rsphases)."""
+    from viterbi_tpu_torch.probes import rsform, rsphases
     rows = rsform.main([])
     assert len(rows) == len(rsform.DECODERS) * len(rsform.MIXES)
     for r in rows:
         assert r["ms"] > 0 and r["launches"], r
-        # kernel I once a call in its row, never in the field forms' rows
-        assert r["kernel_launches"] == (r["form"] == "kernel"), r
-        if r["form"] == "kernel":
-            assert r["launches"] <= 2, r
-    per_call = {r["kernel_launches"] for r in rows if r["form"] == "kernel"}
+        # a kernel form's kernel once a call in its row, none in the
+        # field forms' rows
+        assert r["kernel_launches"] == (r["form"] in rsform.KERNELS), r
+        if r["form"] in rsform.KERNELS:
+            assert r["launches"] <= 1, r
+    # where kernel I's time goes: its superframes entry with the card's
+    # clock at each step (probes.rsphases, equal to the plain version)
+    rsphases.main([])
+    per_call = {form: {r["kernel_launches"] for r in rows
+                       if r["form"] == form} for form in rsform.KERNELS}
     print(f"{tag} RS forms: " + "; ".join(
         f"{r['mix']} {r['form']} {r['ms']:.4f} ms in {r['launches']} launches"
         for r in rows))
-    return {"rs_decode": per_call.pop()}
+    return {"rs_decode": per_call["kernel"].pop(),
+            "rs_synd_table": per_call["kernel_table_synd"].pop()}
 
 
 def eep_path(dev, tag, check) -> dict:
@@ -1215,7 +1281,8 @@ def tailbiting_phase(dev, tag, check) -> dict:
     launches = _record.launches()
     print(f"tail-biting launches: {launches}")
     assert launches == {"acs_regs": 1, "acs_words": 1, "tb_walk": 1,
-                        "tb_words": 0, "rs_decode": 0}, launches
+                        "tb_words": 0, "rs_decode": 0,
+                        "rs_superframes": 0}, launches
     assert out.device == syms.device and out.shape == (TB_FRAMES, fb // 8)
     nerr = channel.bit_errors_on_device(out, bits)
     assert nerr < TB_FRAMES * fb * 1e-3, f"{nerr} bit errors at 3 dB"
@@ -1431,7 +1498,7 @@ def ingest_phase(dev, tag, packed) -> dict:
         INGEST_ROUNDS)
     assert launches == {"acs_regs": INGEST_BATCHES, "acs_words": 0,
                         "tb_walk": INGEST_BATCHES, "tb_words": 0,
-                        "rs_decode": 0}, launches
+                        "rs_decode": 0, "rs_superframes": 0}, launches
     med = {k: statistics.median(v) for k, v in secs.items()}
     spread = {k: f"{med[k]:.1f} ({min(v):.1f}-{max(v):.1f})"
               for k, v in secs.items()}
@@ -1648,7 +1715,7 @@ def several_rank(rank, world_size, store, data_dir):
         esyms = load("ens_syms")
         launches, (audio, errors), wall, _ = timed_path(
             lambda: dab.decode_ensemble_sharded(esyms, SF_KBPS, m),
-            kernels=("acs_regs", "tb_walk", "rs_decode"))
+            kernels=("acs_regs", "tb_walk", "rs_superframes"))
         assert np.array_equal(audio.cpu().numpy(), load("ens_audio")) and \
             np.array_equal(errors.cpu().numpy(), load("ens_errors")), \
             "decode_ensemble_sharded != the one-process chain"
@@ -1850,7 +1917,7 @@ def main() -> int:
     for lib in (_build.MAIN, _build.PROBES):
         for name, (regs, st, ld) in ptxas_summary(
                 _build.build_log(library=lib)).items():
-            if lib is _build.MAIN or "kablate" in name:
+            if lib is _build.MAIN or "kablate" in name or "rs_" in name:
                 print(f"  ptxas: {name}: {regs} registers, spills {st} B "
                       f"stored, {ld} B loaded")
     # kernels A, C and E: one lane a frame and four, packed and unpacked
@@ -1865,6 +1932,18 @@ def main() -> int:
         assert len(names) == count, f"{kernel}'s instantiations: {names}"
     for name, (regs, st, ld) in forward.items():
         assert st == 0 and ld == 0, f"{name} spills: {st}/{ld} bytes"
+    # kernel I (superframes at two capacities, uint8 and int32 codewords):
+    # at most 64 registers, so four blocks of 256 an SM, and no spills;
+    # the probe's build with the table syndromes is printed above
+    for lib in (_build.MAIN, _build.PROBES):
+        rs_k = {n: v for n, v in ptxas_summary(
+            _build.build_log(library=lib)).items()
+            if "rs_superframes_kernel" in n or "rs_codewords_kernel" in n}
+        assert len(rs_k) == 4, f"kernel I's instantiations: {list(rs_k)}"
+        for name, (regs, st, ld) in rs_k.items():
+            assert regs <= 64, f"{name}: {regs} registers"
+            assert lib is _build.PROBES or st == ld == 0, \
+                f"{name} spills {st}/{ld} bytes"
     clock_hz = sm_clock_hz()
     print(f"bounds against {HBM_BYTES_S / 1e12} TB/s and "
           f"{INT_LANES * SMS * clock_hz / 1e12:.2f} T int32 ops/s "
@@ -1874,7 +1953,7 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     errs = dict.fromkeys(("acs_regs", "tb_walk", "acs_words", "tb_words",
                           "kablate", "kdtype_op", "kdtype_chain",
-                          "kilp_streams", "rs_decode"), 0)
+                          "kilp_streams", "rs_decode", "rs_synd_table"), 0)
 
     def check(kernel, got, want, what):
         e = max_abs_err(got, want)
@@ -2188,16 +2267,23 @@ def main() -> int:
     print(f"superframe phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rs_paths = {"superframe": sf_launches, "rs_check_superframe":
-                rs_export(tag), "rsform": rs_forms(tag)}
+                rs_export(tag, check), "rsform": rs_forms(tag)}
     print(f"RS phase: {time.perf_counter() - t0:.1f} s")
-    # kernel I's bound on the chain's codewords: each byte read once at its
-    # width, the counts and the int32 codewords written once; the
-    # operations this run's codewords need (rs_decoder_ops)
+    # kernel I's bound on the chain's superframes: each byte read once, the
+    # audio and the two int32 sums written once; the operations this run's
+    # codewords need (rs_decoder_ops): the syndromes on the tensor cores,
+    # the dirty codewords on the integer lanes; the probe's table form
+    # takes its syndromes on the integer lanes too
     mix = rs_row["mix"]
-    bounds["rs_decode"] = bound(
-        mix["codewords"] * (C.RS_N * mix["in_bytes"] + 4 + C.RS_N * 4),
-        mix["ops"], clock_hz)
+    rs_bytes = mix["codewords"] * (C.RS_N + C.RS_KK) \
+        + mix["superframes"] * 8
+    ops = mix["ops"]
+    bounds["rs_decode"] = bound(rs_bytes, ops["dirty"], clock_hz,
+                                tensor_ops=ops["synd_tensor"])
+    bounds["rs_synd_table"] = bound(rs_bytes, ops["dirty"]
+                                    + ops["synd_table"], clock_hz)
     times["rs_decode"] = (rs_row["ms"], rs_row["plain_ms"])
+    times["rs_synd_table"] = (rs_row["table_ms"], rs_row["plain_ms"])
     t0 = time.perf_counter()
     eep_launches = eep_path(dev, tag, check)
     replay_phase(ROOT)
@@ -2254,29 +2340,43 @@ def main() -> int:
         "kdtype_op": (csrc + "probes/kdtype.cu", "scripts/kdtype.py:27"),
         "kdtype_chain": (csrc + "probes/kdtype.cu", "scripts/kdtype.py:60"),
         "kilp_streams": (csrc + "probes/kilp.cu", "scripts/kilp.py:30"),
-        # a jitted XLA function, not a Pallas kernel
+        # jitted XLA functions, not Pallas kernels: rs_decode_blocks and
+        # rs_check_superframe (rs.py:300); the probe is kernel I's device
+        # code with the other syndrome form
         "rs_decode": (csrc + "rs_decode.cu", "viterbi_tpu/ops/rs.py:166"),
+        "rs_synd_table": (csrc + "probes/rs_synd.cu",
+                          "viterbi_tpu/ops/rs.py:166"),
     }
+    # kernel I's row counts both its entries
+    i_paths = {path: c.get("rs_decode", 0) + c.get("rs_superframes", 0)
+               for path, c in paths.items()}
     kernels = []
     for name, (src, rep) in meta.items():
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep}
         if name in probe_rows:
             row.update(probe_rows[name])
+        elif name == "rs_synd_table":
+            # a probe: its launches a call on the rsform path; its time on
+            # phase 8's superframes, beside kernel I's
+            row.update(launches=rs_paths["rsform"][name], ms=times[name][0],
+                       plain_ms=times[name][1], library_ms=None,
+                       **bounds[name])
         else:
             # no single PyTorch call computes kernels A-D or I; kernel I's
             # launches are the superframe chain's (phase 8)
-            path_launches = sf_launches if name == "rs_decode" else launches
-            row.update(launches=path_launches[name], ms=times[name][0],
-                       plain_ms=times[name][1], library_ms=None,
-                       **bounds[name])
+            by_path = i_paths if name == "rs_decode" else {
+                path: c.get(name, 0) for path, c in paths.items()}
+            row.update(launches=by_path["superframe" if name == "rs_decode"
+                                        else "main"],
+                       ms=times[name][0], plain_ms=times[name][1],
+                       library_ms=None, **bounds[name])
             if name in lanes_at_main:     # the form taken at this batch
                 row["lanes"] = lanes_at_main[name]
             if name == "tb_walk":
                 row.update(walk_extra)
             # the launches of each path's call (the session: a push)
-            row["launches_by_path"] = {
-                path: counts[name] for path, counts in paths.items()
-                if counts.get(name)}
+            row["launches_by_path"] = {p: n for p, n in by_path.items()
+                                       if n}
         row["max_abs_err"] = errs[name]
         assert row["launches"] > 0 and row["max_abs_err"] == 0, row
         kernels.append(row)

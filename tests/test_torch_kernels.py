@@ -20,7 +20,8 @@ from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import rs as rs_ops
 from viterbi_tpu_torch.ops import traceback as tb
-from viterbi_tpu_torch.probes import _common, kablate, kdtype, kilp, rsform
+from viterbi_tpu_torch.probes import (_common, kablate, kdtype, kilp, rsform,
+                                      rsphases)
 
 pytestmark = pytest.mark.cuda
 
@@ -320,7 +321,7 @@ def test_superframe_chain_on_card_matches_plain_only_call(cuda, kbps):
 
     def launches():
         return (acs_cuda.forward_regs.launches, tb.tb_walk.launches,
-                rs_ops.rs_decode_blocks.launches)
+                rs_ops.rs_check_superframes.launches)
 
     before = launches()
     audio, errors = dab.decode_audio_superframes(dsyms, kbps)
@@ -517,20 +518,134 @@ def test_rs_kernel_holds_the_reference_traps(cuda, trap):
 
 def test_rs_kernel_is_one_launch_and_the_superframe_check_follows(cuda):
     """rs_decode_blocks on a card tensor is kernel I, one device launch
-    (the plain version takes about 340), and the export's decode is the
-    same; int64 codewords are refused, not converted."""
+    (the plain version takes about 340), and the export's check is one
+    launch of its superframes entry; int64 codewords are refused, not
+    converted."""
     cws, _ = _rs_mix("clean-dominated", 4096)
     blocks = torch.from_numpy(cws).to(cuda)
     rs_ops.rs_decode_blocks(blocks)
     assert _common.count_launches(
-        lambda: rs_ops.rs_decode_blocks(blocks)) <= 2
-    before = rs_ops.rs_decode_blocks.launches
-    p = blocks[:16].T.reshape(-1).contiguous()
+        lambda: rs_ops.rs_decode_blocks(blocks)) <= 1
+    before = rs_ops.rs_check_superframes.launches
+    p = blocks[:16].T.reshape(-1).to(torch.uint8).contiguous()
     errors, out, n_ok = rs_ops.rs_check_superframe(p, 16)
-    assert rs_ops.rs_decode_blocks.launches == before + 1
+    assert rs_ops.rs_check_superframes.launches == before + 1
+    assert _common.count_launches(
+        lambda: rs_ops.rs_check_superframe(p, 16)) <= 1
     g_err, g_out = golden.rs_check_superframe(p.cpu().numpy(), 16)
     assert int(errors) == g_err
     if g_err >= 0:
         assert np.array_equal(out.cpu().numpy(), g_out)
     with pytest.raises(TypeError, match="uint8 or int32"):
         rs_ops.rs_decode_blocks(blocks.long())
+
+
+# --- kernel I's superframes entry -------------------------------------------
+
+def _sf_batch(rs_dims, G, mix="64 uncorrectable", seed=0):
+    """G byte-interleaved superframes of rs_dims codewords of a mix."""
+    cws, _ = _rs_mix(mix, G * rs_dims, seed=seed)
+    return np.ascontiguousarray(cws.reshape(G, rs_dims, C.RS_N)
+                                .transpose(0, 2, 1).reshape(G, -1)
+                                .astype(np.uint8))
+
+
+def _hold_sf(sf, rs_dims, zero):
+    """Kernel I's superframes entry and the probe's table syndrome form
+    against the plain version on the same tensor: one launch each."""
+    want = rs_ops.rs_check_superframes_plain(sf, rs_dims,
+                                             zero_after_fail=zero)
+    for entry in (rs_ops.rs_check_superframes,
+                  rsform.rs_check_superframes_table_synd):
+        before = entry.launches
+        got = entry(sf, rs_dims, zero_after_fail=zero)
+        assert entry.launches == before + 1
+        for g, w in zip(got, want, strict=True):
+            assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w)
+    return want
+
+
+@pytest.mark.parametrize("zero", [True, False])
+@pytest.mark.parametrize("G,rs_dims", [
+    (G, d) for G in (1, 7) for d in (1, 2, 4, 16, 48, 130)]
+    + [(2048, 4), (2048, 16)])
+def test_rs_superframes_kernel_matches_plain(cuda, G, rs_dims, zero):
+    """Every rs_dims the chain and the export meet (and 130, more
+    codewords than a block stages by default), one superframe to
+    the chain's 2048, the zero fill on and off; odd rs_dims give rows off
+    the 16-byte grid."""
+    sf = torch.from_numpy(_sf_batch(rs_dims, G, seed=G + rs_dims)).to(cuda)
+    errors, _, n_ok = _hold_sf(sf, rs_dims, zero)
+    assert ((errors == -1) == (n_ok < rs_dims)).all()
+
+
+@pytest.mark.parametrize("offset,pitch", [(0, 8), (1, 0), (8, 24)])
+def test_rs_superframes_kernel_reads_rows_where_they_lie(cuda, offset,
+                                                         pitch):
+    """Rows further apart than their length and views that start off the
+    16-byte grid: read in place, no copy before the launch."""
+    rs_dims, G = 16, 9
+    sfs = _sf_batch(rs_dims, G, seed=offset)
+    L = rs_dims * C.RS_N
+    base = torch.zeros(G * (L + pitch) + offset + L, dtype=torch.uint8)
+    rows = base[offset:offset + G * (L + pitch)].view(G, L + pitch)[:, :L]
+    rows.copy_(torch.from_numpy(sfs))
+    view = base.to(cuda)[offset:offset + G * (L + pitch)] \
+        .view(G, L + pitch)[:, :L]
+    assert view.stride() == (L + pitch, 1)
+    _hold_sf(view, rs_dims, True)
+
+
+@pytest.mark.parametrize("trap", list(TRAPS))
+def test_rs_superframes_kernel_holds_the_reference_traps(cuda, trap):
+    word = trap_word(trap).astype(np.uint8)
+    cws = np.stack([word, word, word, word])
+    sf = torch.from_numpy(np.ascontiguousarray(cws.T.reshape(1, -1))) \
+        .to(cuda)
+    errors, out, _ = _hold_sf(sf, 4, False)
+    g_err, g_out = golden.rs_check_superframe(sf[0].cpu().numpy(), 4)
+    assert int(errors[0]) == g_err
+    if g_err >= 0:
+        assert np.array_equal(out[0].cpu().numpy(), g_out)
+
+
+def test_rs_stage_and_export_are_one_launch_each(cuda):
+    """The chain's RS stage and the export each launch kernel I once and
+    nothing else on the card (the export: a copy each way besides); the
+    entry refuses int32 superframes and byte strides, not converts."""
+    from viterbi_tpu_torch import api
+    from viterbi_tpu_torch.models import dab
+    sf = torch.from_numpy(_sf_batch(16, 64)).to(cuda)
+    before = rs_ops.rs_check_superframes.launches
+    dab.rs_superframes(sf, 16, True)
+    assert rs_ops.rs_check_superframes.launches == before + 1
+    assert _common.count_launches(
+        lambda: dab.rs_superframes(sf, 16, True)) == 1
+    api.initialize()
+    one = sf[3].cpu().numpy()
+    before = rs_ops.rs_check_superframes.launches
+    ret = api.rs_check_superframe(one, 0, 16)
+    assert rs_ops.rs_check_superframes.launches == before + 1
+    assert ret == golden.rs_check_superframe(one, 16)[0]
+    assert _common.count_launches(
+        lambda: api.rs_check_superframe(one, 0, 16)) <= 3
+    with pytest.raises(TypeError, match="uint8"):
+        rs_ops.rs_check_superframes(sf.int(), 16, zero_after_fail=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs_ops.rs_check_superframes(sf.t().contiguous().t(), 16,
+                                    zero_after_fail=True)
+
+
+def test_rs_phases_probe_times_kernel_i_and_matches_plain(cuda):
+    """The step probe (kernel I's superframes entry with the card's clock
+    at each step) gives the plain version's output and times that add up:
+    each step takes time, the span covers the median block."""
+    for name, G, rs_dims, frac, max_errs, bad in rsphases.CASES:
+        sf = torch.from_numpy(rsphases.superframes(
+            np.random.default_rng(G), G, rs_dims, frac, max_errs, bad)) \
+            .to(cuda)
+        got = rsphases.phases(sf, rs_dims)     # raises on any difference
+        assert got["blocks"] * got["per_block"] >= G
+        assert all(t >= 0 for t in got["mean_us"]) and got["span_us"] > 0
+        assert got["end_p50_us"] <= got["span_us"]
+        assert (got["dirty_max"] > 0) == (frac > 0 or bad > 0), name

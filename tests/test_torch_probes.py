@@ -10,8 +10,9 @@ import torch
 from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.ops import acs_cuda
+from viterbi_tpu_torch.ops import rs as rs_ops
 from viterbi_tpu_torch.ops import traceback as tb
-from viterbi_tpu_torch.probes import kablate, kdtype, kilp, rsform
+from viterbi_tpu_torch.probes import kablate, kdtype, kilp, rsform, rsphases
 
 NP_TYPES = {"u8": np.uint8, "i8": np.int8, "u16": np.uint16, "i16": np.int16,
             "i32": np.int32}
@@ -309,7 +310,8 @@ def test_streams_rejects_what_the_kernel_does_not_take():
         kilp.streams(x.float(), 2, "int", 2)
 
 
-@pytest.mark.parametrize("module", [kablate, kdtype, kilp])
+@pytest.mark.parametrize("module", [kablate, kdtype, kilp, rsform,
+                                    rsphases])
 def test_probe_tables_need_a_card(module):
     """A probe's table is a device measurement: without a card it raises
     and prints nothing measured on the CPU."""
@@ -333,6 +335,23 @@ def test_rsform_mix_plants_its_counts_and_the_forms_agree():
     assert torch.equal(c_t, c_b) and torch.equal(d_t, d_b)
     assert np.array_equal(c_t.numpy(), np.where(nerr > 5, -1, nerr))
     assert np.array_equal(d_t.numpy()[3:], clean[3:])
+
+
+def test_rsphases_batches_are_superframes_with_the_mix_planted():
+    """The step probe's batches: byte-interleaved superframes whose
+    codewords carry the case's errors (the plain decode counts them), and
+    a clean batch for the clean case."""
+    rng = np.random.default_rng(3)
+    for name, G, rs_dims, frac, max_errs, bad in rsphases.CASES:
+        sfs = rsphases.superframes(rng, min(G, 12), rs_dims, frac, max_errs,
+                                   bad)
+        assert sfs.shape == (min(G, 12), rs_dims * C.RS_N)
+        errors, _, _ = rs_ops.rs_check_superframes_plain(
+            torch.from_numpy(sfs), rs_dims, zero_after_fail=False)
+        if frac == 0 and bad == 0:
+            assert (errors == 0).all(), name
+        if bad:
+            assert (errors == -1).any(), name
 
 
 _SASS = """

@@ -181,7 +181,7 @@ def test_decode_blocks_takes_bytes_and_rejects_other_shapes():
     ([9, 0], -1, 0)])
 def test_check_superframe_matches_jax_and_golden(errs, errors, n_ok, form,
                                                 monkeypatch):
-    monkeypatch.setattr(TR, "rs_decode_blocks", RF.FORMS[form])
+    monkeypatch.setattr(TR, "rs_decode_blocks_plain", RF.FORMS[form])
     rs_dims = len(errs)
     msgs, cws = _codewords(np.random.default_rng(4), errs)
     sf = cws.T.reshape(-1).astype(np.uint8)
@@ -322,18 +322,31 @@ def test_api_logs_and_captures_the_superframe(tmp_path):
 
 # --- kernel I's schedule, modelled in torch --------------------------------
 #
-# Kernel I (csrc/rs_decode.cu) runs only on the card. This model follows
-# its schedule lane by lane, 32 lanes a codeword: each lane's four bytes
-# (j = lane + 32 k) and ten partial syndromes packed four to a word, the
-# XOR butterfly of the shuffles, the warp-uniform exit of a clean
-# codeword, Berlekamp-Massey with coefficient `lane` on lanes 0-10, the
-# Chien search with eight field elements a lane and the roots placed by
-# ballot and prefix popcount, omega coefficient `lane`, Forney root `lane`.
+# Kernel I (csrc/rs_decode.cuh, rs_decode.cu) runs only on the card. This
+# model follows its schedule: a block stages whole superframes as they lie
+# (or codewords as rows) and reads codeword c's byte j at off(c) + j * sj;
+# a warp takes the syndromes of a tile of 16 codewords as the tensor
+# cores' AND-popcount product of the codewords' bits with _SYND_M's
+# fragments, lane by lane in the m16n8k256 layout (the probe's table form:
+# four bytes a lane, ten antilog lookups a byte, an XOR butterfly of
+# shuffles); each tile's dirty codewords form a mask, and the r-th dirty
+# codeword of the block goes to warp r % 8, which runs Berlekamp-Massey
+# with coefficient `lane` on lanes 0-10 (lambda as values and logs, b as
+# logs: a product is one antilog lookup; the discrepancy an XOR reduction
+# over the warp), the Chien search with 32 field
+# elements a round until deg lambda roots (placed by ballot and prefix
+# popcount), omega coefficient `lane`, Forney root `lane`, and XORs each
+# value into the staged bytes. The epilogue reduces each superframe's
+# counts to its sum (or -1) and first failure, and writes the first
+# rs_dims * 110 staged bytes as they lie, zero from the first failure on
+# where asked.
 
 _ATO_T = torch.from_numpy(TR._ATO_NP.astype(np.int64))
 _IOF_T = torch.from_numpy(TR._IOF_NP.astype(np.int64))
+_FRAG_T = torch.from_numpy(TR._SYND_FRAGMENTS_NP.astype(np.int64))
 _LANE = torch.arange(32)
 _NN = C.RS_NN
+_WARPS = 8
 
 
 def _shfl_xor(x, off):
@@ -350,6 +363,13 @@ def _popc(mask):
     return ((mask[..., None] >> _LANE) & 1).sum(dim=-1)
 
 
+def _xor_lanes(x):
+    """__reduce_xor_sync: the XOR of the lane axis (the last)."""
+    for off in (16, 8, 4, 2, 1):
+        x = x ^ _shfl_xor(x, off)
+    return x[..., 0]
+
+
 def _mul(a, b):
     """The kernel's product through the tables: 0 if either is 0."""
     return torch.where((a != 0) & (b != 0), _ATO_T[_IOF_T[a] + _IOF_T[b]], 0)
@@ -361,18 +381,14 @@ def _syndrome(words, i):
     return (w >> (8 * (i & 3))) & 0xFF
 
 
-def kernel_model(blocks: torch.Tensor):
-    """Kernel I's result on [B, 120] codewords, computed its way. Returns
-    (count int32[B], corrected int32[B, 120], what) with ``what`` the
-    schedule's inner values: deg_lambda, the ballots' roots (0 beyond
-    count) and num1 at each root past the pad (-1 elsewhere)."""
-    data = blocks.reshape(-1, C.RS_N).to(torch.int64)
+def _table_syndromes(data):
+    """The table form (the probe, csrc/probes/rs_synd.cu): a warp a
+    codeword, lane l's bytes l + 32 k, ten syndromes packed four to a word,
+    XOR-reduced by the butterfly. [B, 120] -> [B, 3] words."""
     B = data.shape[0]
     j = _LANE[None, :] + 32 * torch.arange(4)[:, None]          # [4, 32]
     in_row = j < C.RS_N
     d = torch.where(in_row, data[:, j.clamp(max=C.RS_N - 1)], 0)  # [B,4,32]
-
-    # syndromes: a lane's bytes, ten roots each, packed four to a word
     words = torch.zeros((B, 3, 32), dtype=torch.int64)
     for k in range(4):
         v = d[:, k] & 0xFF
@@ -386,49 +402,125 @@ def kernel_model(blocks: torch.Tensor):
     for off in (16, 8, 4, 2, 1):
         words = words ^ _shfl_xor(words, off)
     assert (words == words[..., :1]).all()        # every lane holds them
-    words = words[..., 0]                                      # [B, 3]
-    clean = (words == 0).all(dim=1)                            # warp-uniform
+    return words[..., 0]
 
-    # Berlekamp-Massey: coefficient `lane` of lambda and b
+
+def _row_words(data):
+    """A codeword's 960 bits as 32 words (bit a of byte j at k = 8 j + a:
+    bytes 4 c .. 4 c + 3 little-endian in word c, zero past byte 119)."""
+    padded = torch.zeros((data.shape[0], 128), dtype=torch.int64)
+    padded[:, :C.RS_N] = data & 0xFF
+    return (padded.reshape(-1, 32, 4) << torch.tensor([0, 8, 16, 24])) \
+        .sum(dim=-1)
+
+
+def _popcount32(x):
+    return ((x[..., None] >> torch.arange(32)) & 1).sum(dim=-1)
+
+
+def _mma_syndromes(data):
+    """The tensor-core form, lane by lane: tiles of 16 codewords, four
+    k-steps of mma.m16n8k256 AND-popcount a syndrome (n-tile), the
+    fragments of A from the rows' words and of B from _SYND_FRAGMENTS_NP,
+    bit 0 of each sum a syndrome bit, OR-ed over the lane group.
+    [B, 120] -> [B, 3] words."""
+    B = data.shape[0]
+    T = -(-B // 16)
+    rows = torch.zeros((T * 16, 32), dtype=torch.int64)
+    rows[:B] = _row_words(data)
+    rows = rows.reshape(T, 16, 32)
+    g, tig = _LANE >> 2, _LANE & 3
+    # each lane's registers: a[step][reg] [T, 32 lanes], b [10, step, reg]
+    a = torch.stack([torch.stack([rows[:, g, 8 * st + tig],
+                                  rows[:, g + 8, 8 * st + tig],
+                                  rows[:, g, 8 * st + 4 + tig],
+                                  rows[:, g + 8, 8 * st + 4 + tig]])
+                     for st in range(4)])                  # [4, 4, T, 32]
+    m = torch.arange(16)
+    n8 = torch.arange(8)
+    w = torch.zeros((T, 32, 2, 3), dtype=torch.int64)      # rows g, g + 8
+    for i in range(C.RS_NROOTS):
+        dsum = torch.zeros((T, 16, 8), dtype=torch.int64)  # D[m][n]
+        for st in range(4):
+            for q in range(8):
+                # chunk q of the step: A[m] from lane (m % 8) * 4 + q % 4,
+                # register 2 (q >= 4) + (m >= 8); B[n] from lane n * 4 +
+                # q % 4, register (q >= 4)
+                av = a[st][2 * int(q >= 4) + (m >= 8).long(), :,
+                           (m % 8) * 4 + q % 4].T           # [T, 16]
+                bv = _FRAG_T[i, st, n8 * 4 + q % 4, int(q >= 4)]   # [8]
+                dsum += _popcount32(av[:, :, None] & bv[None, None, :])
+        c = torch.stack([dsum[:, g, 2 * tig], dsum[:, g, 2 * tig + 1],
+                         dsum[:, g + 8, 2 * tig],
+                         dsum[:, g + 8, 2 * tig + 1]], dim=-1)   # [T,32,4]
+        sh = 8 * (i & 3) + 2 * tig
+        w[:, :, 0, i >> 2] |= ((c[..., 0] & 1) | (c[..., 1] & 1) << 1) << sh
+        w[:, :, 1, i >> 2] |= ((c[..., 2] & 1) | (c[..., 3] & 1) << 1) << sh
+    for off in (1, 2):                            # OR over the lane group
+        w = w | w[:, _LANE ^ off]
+    # lane 4 g holds row g's words and row g + 8's
+    words = torch.cat([w[:, 4 * torch.arange(8), 0],
+                       w[:, 4 * torch.arange(8), 1]], dim=1)    # [T, 16, 3]
+    return words.reshape(T * 16, 3)[:B]
+
+
+_SYNDROMES = {"mma": _mma_syndromes, "table": _table_syndromes}
+
+
+def _dirty_path(data, words):
+    """A warp's work on codewords whose syndromes ``words`` [B, 3] are not
+    all zero. Returns (count [B] with -1, correction [B, 120], what)."""
+    B = data.shape[0]
+    # the syndromes' logs (255 for zero); a product is one lookup,
+    # alpha^(log a + log b)
+    sl = torch.stack([(words[:, i >> 2] >> (8 * (i & 3))) & 0xFF
+                      for i in range(C.RS_NROOTS)], dim=1)      # [B, 10]
+    sls = torch.where(sl != 0, _IOF_T[sl], _NN)
+    # Berlekamp-Massey: coefficient `lane` of lambda (a value and a log)
+    # and of b (a log)
     lam = (_LANE == 0).to(torch.int64).expand(B, 32).clone()
-    bb = lam.clone()
+    lam_log = torch.where(_LANE == 0, 0, _NN).expand(B, 32).clone()
+    b_log = lam_log.clone()
     el = torch.zeros(B, dtype=torch.int64)
-    wl = words[:, None, :].expand(B, 32, 3)
     for r in range(1, C.RS_NROOTS + 1):
-        sv = _syndrome(wl, (r - 1 - _LANE).clamp(min=0)[None, :, None]
-                       .expand(B, 32, 1))[..., 0]
-        t = torch.where(_LANE < r, _mul(lam, sv), 0)
-        for off in (8, 4, 2, 1):
-            t = t ^ _shfl_xor(t, off)
-        discr = t[:, :1]                                       # lane 0's
-        shift_b = torch.cat([torch.zeros((B, 1), dtype=torch.int64),
-                             bb[:, :-1]], dim=1)               # shfl_up
-        shift_b = torch.where(_LANE > C.RS_NROOTS, 0, shift_b)
+        slr = torch.where(_LANE < r, sls[:, (r - 1 - _LANE).clamp(min=0)],
+                          _NN)
+        t = torch.where((lam_log != _NN) & (slr != _NN),
+                        _ATO_T[(lam_log + slr).clamp(max=767)], 0)
+        discr = _xor_lanes(t)[:, None]              # __reduce_xor_sync
+        shift_b = torch.cat([torch.full((B, 1), _NN), b_log[:, :-1]],
+                            dim=1)                              # shfl_up
+        shift_b = torch.where(_LANE > C.RS_NROOTS, _NN, shift_b)
+        d_log = _IOF_T[discr]
         swap = (2 * el[:, None] <= r - 1) & (discr != 0)
-        inv = _ATO_T[_NN - _IOF_T[discr]]
-        bb = torch.where(swap, _mul(lam, inv), shift_b)
-        lam = lam ^ _mul(discr.expand(B, 32), shift_b)
+        inv = lam_log + _NN - d_log
+        inv = torch.where(inv >= _NN, inv - _NN, inv)
+        b_log = torch.where(swap, torch.where(lam_log == _NN, _NN, inv),
+                            shift_b)
+        upd = (discr != 0) & (shift_b != _NN)
+        lam = lam ^ torch.where(upd, _ATO_T[(d_log + shift_b).clamp(
+            max=767)], 0)
+        lam_log = torch.where(lam != 0, _IOF_T[lam], _NN)
         el = torch.where(swap[:, 0], r - el, el)
     ballot = _ballot(lam != 0)
     deg = torch.where(((ballot[:, None] >> _LANE) & 1) != 0, _LANE, -1) \
         .amax(dim=1)                                   # 31 - clz(ballot)
     lg = torch.where(lam != 0, _IOF_T[lam], _NN)[:, :C.RS_NROOTS + 1]
 
-    # Chien: elements lane + 1 + 32 k; roots by ballot and prefix count
+    # Chien: elements lane + 1 + 32 k while fewer than deg roots are found;
+    # roots by ballot and prefix count
     count = torch.zeros(B, dtype=torch.int64)
     roots = torch.zeros((B, C.RS_NROOTS), dtype=torch.int64)
     below = (1 << _LANE) - 1
     for k in range(8):
+        going = count < deg                        # warp-uniform break
         i = _LANE + 1 + 32 * k
-        step = torch.where(i == _NN, 0, i)
-        q, e = torch.ones((B, 32), dtype=torch.int64), torch.zeros(
-            32, dtype=torch.int64)
+        q = torch.ones((B, 32), dtype=torch.int64)
         for jj in range(1, C.RS_NROOTS + 1):
-            e = e + step
-            e = torch.where(e >= _NN, e - _NN, e)
+            e = TR.mod255(i * jj)                  # i * j mod 255, exact
             q = q ^ torch.where(lg[:, jj:jj + 1] != _NN,
                                 _ATO_T[lg[:, jj:jj + 1] + e], 0)
-        root = (i <= _NN) & (q == 0)
+        root = (i <= _NN) & (q == 0) & going[:, None]
         bal = _ballot(root)
         slot = count[:, None] + _popc(bal[:, None] & below)
         put = root & (slot < C.RS_NROOTS)
@@ -438,15 +530,13 @@ def kernel_model(blocks: torch.Tensor):
     correctable = count == deg
 
     # omega coefficient `lane` (< 10), then Forney root `lane` (< count)
-    sl = torch.stack([(words[:, i >> 2] >> (8 * (i & 3))) & 0xFF
-                      for i in range(C.RS_NROOTS)], dim=1)      # [B, 10]
     om = torch.zeros((B, C.RS_NROOTS), dtype=torch.int64)
     for jj in range(C.RS_NROOTS):
         for ln in range(jj, C.RS_NROOTS):
-            sv = sl[:, ln - jj]
-            ok = (lg[:, jj] != _NN) & (sv != 0)
-            om[:, ln] ^= torch.where(ok, _ATO_T[_IOF_T[sv] + lg[:, jj]
-                                                .clamp(max=_NN - 1)], 0)
+            sv = sls[:, ln - jj]
+            ok = (lg[:, jj] != _NN) & (sv != _NN)
+            om[:, ln] ^= torch.where(ok, _ATO_T[(sv + lg[:, jj]).clamp(
+                max=767)], 0)
     ol = torch.where(om != 0, _IOF_T[om], _NN)
     lane = torch.arange(C.RS_NROOTS)
     active = (lane < count[:, None]) & (roots >= C.RS_PAD + 1)
@@ -463,17 +553,87 @@ def kernel_model(blocks: torch.Tensor):
         den ^= torch.where(ok, _ATO_T[TR.mod255(lg[:, i + 1:i + 2]
                                                 + i * roots)], 0)
     errval = _ATO_T[_IOF_T[num1] + _IOF_T[num2] + (_NN - _IOF_T[den])]
-    apply = active & (num1 != 0) & (correctable & ~clean)[:, None]
+    apply = active & (num1 != 0) & correctable[:, None]
     corr = torch.zeros((B, C.RS_N), dtype=torch.int64)
     b_idx, r_idx = torch.nonzero(apply, as_tuple=True)
     corr[b_idx, roots[b_idx, r_idx] - 1 - C.RS_PAD] = errval[b_idx, r_idx]
-
-    count = torch.where(clean, 0, torch.where(correctable, count, -1))
-    corrected = data ^ torch.where(count[:, None] > 0, corr, 0)
+    count = torch.where(correctable, count, -1)
     what = {"deg_lambda": deg, "roots": torch.where(lane < count[:, None]
                                                     .clamp(min=0), roots, 0),
             "num1": torch.where(active, num1, -1)}
-    return count.to(torch.int32), corrected.to(torch.int32), what
+    return count, torch.where(count[:, None] > 0, corr, 0), what
+
+
+def _decode_staged(data, form):
+    """Syndromes by ``form``, then the dirty path on the dirty codewords
+    only, in the block's order. Returns (count [B], correction [B, 120],
+    what, warp [B]: the warp that took each dirty codeword, -1 if
+    clean)."""
+    B = data.shape[0]
+    words = _SYNDROMES[form](data)
+    dirty = (words != 0).any(dim=1)
+    # the tiles' masks, then the dirty codewords in tile and bit order
+    tmask = [sum(int(dirty[t * 16 + r]) << r for r in range(16)
+                 if t * 16 + r < B) for t in range(-(-B // 16))]
+    order = torch.tensor([16 * t + r for t, m in enumerate(tmask)
+                          for r in range(16) if m >> r & 1],
+                         dtype=torch.int64)
+    assert torch.equal(order, torch.nonzero(dirty).reshape(-1))
+    warp = torch.full((B,), -1, dtype=torch.int64)
+    warp[order] = torch.arange(len(order)) % _WARPS
+    count = torch.zeros(B, dtype=torch.int64)
+    corr = torch.zeros((B, C.RS_N), dtype=torch.int64)
+    what = {"deg_lambda": torch.zeros(B, dtype=torch.int64),
+            "roots": torch.zeros((B, C.RS_NROOTS), dtype=torch.int64),
+            "num1": torch.full((B, C.RS_NROOTS), -1, dtype=torch.int64)}
+    if len(order):
+        c, k, w = _dirty_path(data[order], words[order])
+        count[order], corr[order] = c, k
+        for key in what:
+            what[key][order] = w[key]
+    return count, corr, what, warp
+
+
+def kernel_model(blocks: torch.Tensor, form: str = "mma"):
+    """Kernel I's codewords entry on [B, 120] codewords (staged as rows),
+    computed its way with the syndromes in ``form``. Returns (count
+    int32[B], corrected int32[B, 120], what) with ``what`` the schedule's
+    inner values: deg_lambda, the ballots' roots (0 beyond count) and num1
+    at each root past the pad (-1 elsewhere), 0 / -1 for clean ones."""
+    data = blocks.reshape(-1, C.RS_N).to(torch.int64)
+    count, corr, what, _ = _decode_staged(data, form)
+    return count.to(torch.int32), (data ^ corr).to(torch.int32), what
+
+
+def superframes_model(sf: torch.Tensor, rs_dims: int, zero_after_fail: bool,
+                      per_block: int, form: str = "mma"):
+    """Kernel I's superframes entry on uint8 [G, rs_dims*120], a block
+    taking ``per_block`` superframes at a time: (errors, out, n_ok) as
+    ``ops.rs.rs_check_superframes`` returns them."""
+    G, D = sf.shape[0], rs_dims
+    L, Lo = D * C.RS_N, D * C.RS_KK
+    errors = torch.empty(G, dtype=torch.int32)
+    n_ok = torch.empty(G, dtype=torch.int32)
+    out = torch.empty((G, Lo), dtype=torch.uint8)
+    for g0 in range(0, G, per_block):
+        ns = min(per_block, G - g0)
+        raw = sf[g0:g0 + ns].reshape(-1).to(torch.int64)   # staged as is
+        c = torch.arange(ns * D)
+        off = (c // D) * L + c % D                 # codeword c's byte 0
+        at = off[:, None] + torch.arange(C.RS_N)[None, :] * D
+        count, corr, _, _ = _decode_staged(raw[at], form)
+        raw[at.reshape(-1)] ^= corr.reshape(-1)    # the corrections in place
+        for f in range(ns):
+            cf = count[f * D:(f + 1) * D]
+            bad = torch.nonzero(cf < 0)
+            first = int(bad[0]) if len(bad) else D
+            errors[g0 + f] = -1 if len(bad) else int(cf.sum())
+            n_ok[g0 + f] = first
+            data = raw[f * L:f * L + Lo].clone()     # the audio as it lies
+            if zero_after_fail:
+                data[torch.arange(Lo) % D >= first] = 0
+            out[g0 + f] = data.to(torch.uint8)
+    return errors, out, n_ok
 
 
 _JAX_ROWS = 6
@@ -493,13 +653,16 @@ def _jax_decode(cws):
 
 
 def _hold(cws):
-    """kernel_model, the plain version, the JAX package's XLA decoder and
-    golden on the same codewords: all four equal, bit for bit."""
+    """kernel_model in both syndrome forms, the plain version, the JAX
+    package's XLA decoder and golden on the same codewords: all equal, bit
+    for bit."""
     blocks = torch.from_numpy(np.asarray(cws, dtype=np.int64))
     m_c, m_d, what = kernel_model(blocks)
+    t_c, t_d, _ = kernel_model(blocks, "table")
     p_c, p_d = TR.rs_decode_blocks_plain(blocks)
     j_c, j_d = _jax_decode(cws)
     assert torch.equal(m_c, p_c) and torch.equal(m_d, p_d)
+    assert torch.equal(t_c, p_c) and torch.equal(t_d, p_d)
     assert np.array_equal(m_c.numpy(), np.asarray(j_c))
     assert np.array_equal(m_d.numpy(), np.asarray(j_d))
     for i, cw in enumerate(cws):
@@ -667,3 +830,159 @@ def test_rs_superframes_plain_matches_the_jax_chain(errs):
     assert torch.equal(same[0], audio) and torch.equal(same[1], errors)
     with pytest.raises(ValueError, match="CUDA"):
         TD.rs_superframes(torch.from_numpy(sfs), rs_dims, use_kernels=True)
+
+
+# --- kernel I's superframes entry and the syndrome product ------------------
+
+def _plain_syndrome_words(data):
+    """The plain version's syndromes (``_gf2_matmul`` on ``_SYND_M``)
+    packed as the kernel packs them: syndrome i in byte i % 4 of word
+    i // 4."""
+    T = TR._device_tables(torch.device("cpu"))
+    bits = TR._gf2_matmul(TR._byte_bits(data, T["bit"]), T["synd"])
+    s = (bits.reshape(-1, C.RS_NROOTS, 8) << T["bit"]).sum(dim=-1)
+    words = torch.zeros((data.shape[0], 3), dtype=torch.int64)
+    for i in range(C.RS_NROOTS):
+        words[:, i >> 2] |= s[:, i] << (8 * (i & 3))
+    return words
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 40])
+def test_mma_fragments_multiply_to_the_syndrome_matrix(n):
+    """The AND-popcount product of the codewords' bits with
+    ``_SYND_FRAGMENTS_NP``, lane by lane in the m16n8k256 layout, equals
+    the plain version's GF(2) product on ``_SYND_M`` and the table form,
+    on random words (ragged tiles included) and on codewords."""
+    rng = np.random.default_rng(n)
+    data = torch.from_numpy(np.concatenate([
+        rng.integers(0, 256, (n, C.RS_N)),
+        _codewords(rng, [0, 1, 5])[1]]))
+    want = _plain_syndrome_words(data)
+    assert torch.equal(_mma_syndromes(data), want)
+    assert torch.equal(_table_syndromes(data), want)
+    clean = (want[n:] == 0).all(dim=1)
+    assert clean.tolist() == [True, False, False]
+
+
+def test_mma_fragments_are_the_syndrome_matrix_in_the_tensor_core_layout():
+    """Word r of lane l's fragment for n-tile i and k-step st holds
+    ``_SYND_M`` column 8 i + l // 4 at rows 256 st + 128 r + 32 (l % 4) +
+    bit, zero past row 959."""
+    frag = TR._SYND_FRAGMENTS_NP
+    assert frag.shape == (C.RS_NROOTS, 4, 32, 2) and frag.dtype == np.uint32
+    m = np.zeros((1024, 80), np.uint8)
+    m[:960] = TR._SYND_M
+    for i, st, lane, r in [(0, 0, 0, 0), (9, 3, 31, 1), (4, 2, 13, 0),
+                           (7, 3, 6, 1)]:
+        k = 256 * st + 128 * r + 32 * (lane % 4) + np.arange(32)
+        bits = (int(frag[i, st, lane, r]) >> np.arange(32)) & 1
+        assert np.array_equal(bits, m[k, 8 * i + lane // 4])
+    pad = frag[:, 3, :, 1].reshape(C.RS_NROOTS, 8, 4)[:, :, 2:]
+    assert not pad.any()                       # rows 960 and up: padding
+
+
+def _superframes(rs_dims, case, G=3, seed=0):
+    """G superframes of rs_dims codewords for one export case, as
+    chip_smoke.py phase 9 builds them: clean, corrected (0 to 5 errors a
+    codeword) or uncorrectable (nine errors in the middle codeword)."""
+    errs = {"clean": [0] * rs_dims,
+            "corrected": [(3 * j) % 6 for j in range(rs_dims)],
+            "uncorrectable": [(j + 1) % 4 if j != rs_dims // 2 else 9
+                              for j in range(rs_dims)]}[case]
+    return np.stack([_codewords(np.random.default_rng(seed + g), errs)[1]
+                     .T.reshape(-1).astype(np.uint8) for g in range(G)])
+
+
+@pytest.mark.parametrize("case", ["clean", "corrected", "uncorrectable"])
+@pytest.mark.parametrize("rs_dims", [1, 4, 16, 48])
+def test_superframes_entry_matches_jax_and_golden(rs_dims, case):
+    """``rs_check_superframes_plain`` and the kernel's model (three
+    superframes, two a block: a ragged last group) with and without the
+    zero fill, against JAX's jitted ``rs_check_superframe`` (the export),
+    the JAX chain's RS stage and golden. Bit for bit."""
+    sfs = _superframes(rs_dims, case, seed=rs_dims)
+    sf = torch.from_numpy(sfs)
+    for zero in (True, False):
+        got = TR.rs_check_superframes_plain(sf, rs_dims,
+                                            zero_after_fail=zero)
+        model = superframes_model(sf, rs_dims, zero, per_block=2)
+        assert [g.dtype for g in got] == [torch.int32, torch.uint8,
+                                          torch.int32]
+        for g, m in zip(got, model):
+            assert torch.equal(g, m)
+        assert torch.equal(TR.rs_check_superframes(
+            sf, rs_dims, zero_after_fail=zero)[1], got[1])
+    errors, out, n_ok = TR.rs_check_superframes_plain(sf, rs_dims,
+                                                      zero_after_fail=True)
+    for g in range(len(sfs)):
+        want = JR.rs_check_superframe(jnp.asarray(sfs[g]), rs_dims)
+        assert int(errors[g]) == int(want[0])
+        assert np.array_equal(out[g].numpy(), np.asarray(want[1]))
+        assert int(n_ok[g]) == int(want[2])
+        g_err, g_out = TG.rs_check_superframe(sfs[g], rs_dims)
+        assert g_err == int(errors[g])
+        if g_err >= 0:
+            assert np.array_equal(out[g].numpy(), g_out)
+    assert ((errors == -1).all() if case == "uncorrectable"
+            else (errors >= 0).all())
+    assert ((n_ok == rs_dims // 2).all() if case == "uncorrectable"
+            else (n_ok == rs_dims).all())
+    audio, errs = _jax_rs_stage(sfs, rs_dims)
+    errors, out, _ = TR.rs_check_superframes_plain(sf, rs_dims,
+                                                   zero_after_fail=False)
+    assert np.array_equal(out.numpy(), audio)
+    assert np.array_equal(errors.numpy(), errs)
+
+
+@pytest.mark.parametrize("per_block", [1, 3, 8])
+def test_superframes_model_on_ragged_batches_and_the_traps(per_block):
+    """Seven superframes of four codewords, the three traps among their
+    codewords, a block taking 1, 3 or 8 at a time: the model equals the
+    plain version and golden; the dirty codewords go to the warps in
+    turn."""
+    rs_dims = 4
+    _, cws = _codewords(np.random.default_rng(8), [0, 2, 9, 5] * 7)
+    cws[[1, 9, 18]] = np.stack([trap_word(t) for t in TRAPS])
+    sfs = cws.reshape(7, rs_dims, C.RS_N).transpose(0, 2, 1) \
+        .reshape(7, -1).astype(np.uint8)
+    sf = torch.from_numpy(sfs)
+    for zero in (True, False):
+        got = superframes_model(sf, rs_dims, zero, per_block)
+        want = TR.rs_check_superframes_plain(sf, rs_dims,
+                                             zero_after_fail=zero)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for g in range(7):
+        g_err, _ = TG.rs_check_superframe(sfs[g], rs_dims)
+        assert g_err == int(got[0][g])
+    _, _, _, warp = _decode_staged(torch.from_numpy(cws), "mma")
+    dirty = warp >= 0
+    assert torch.equal(warp[dirty], torch.arange(int(dirty.sum())) % _WARPS)
+
+
+def test_superframes_entry_on_the_cpu_takes_any_rows_and_refuses_shapes():
+    """On a CPU tensor the entry is its plain version: rows any distance
+    apart, int32 as well as uint8, ``out`` filled in place; shapes that
+    are not [G, rs_dims*120] raise."""
+    sfs = _superframes(4, "corrected", G=2)
+    wide = np.zeros((2, 4 * C.RS_N + 8), np.uint8)
+    wide[:, 8:] = sfs
+    want = TR.rs_check_superframes_plain(torch.from_numpy(sfs), 4,
+                                         zero_after_fail=True)
+    for sf in (torch.from_numpy(wide)[:, 8:],
+               torch.from_numpy(sfs.astype(np.int32))):
+        got = TR.rs_check_superframes(sf, 4, zero_after_fail=True)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    buf, views = TR.superframe_buffer(4, "cpu")
+    TR.rs_check_superframes(torch.from_numpy(sfs[1:]), 4,
+                            zero_after_fail=True, out=views)
+    errors, data, n_ok = TR.unpack_superframe_buffer(buf.numpy(), 4)
+    assert (errors, n_ok) == (int(want[0][1]), int(want[2][1]))
+    assert np.array_equal(data, want[1][1].numpy())
+    for bad in (torch.zeros((2, 4 * C.RS_N - 1), dtype=torch.uint8),
+                torch.zeros(4 * C.RS_N, dtype=torch.uint8)):
+        with pytest.raises(ValueError, match="rs_dims"):
+            TR.rs_check_superframes(bad, 4, zero_after_fail=True)
+    with pytest.raises(ValueError, match="rs_dims"):
+        TR.rs_check_superframes(torch.from_numpy(sfs), 0,
+                                zero_after_fail=False)

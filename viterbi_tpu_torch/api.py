@@ -326,10 +326,14 @@ def rs_check_superframe(p, start_ix: int = 0, rs_dims: int = 0,
     with calllog.record("rscs", rs_dims=rs_dims) as rec:
         buf = buf[: rs_dims * C.RS_N]
         rec.capture_symbols(buf, source=p)
-        sf = torch.from_numpy(np.ascontiguousarray(buf, dtype=np.int32)) \
+        sf = torch.from_numpy(np.ascontiguousarray(buf, dtype=np.uint8)) \
             .to(dispatch.state().device)
-        errors, out, n_ok = rs_ops.rs_check_superframe(sf, rs_dims)
-        errors, n_ok, out = int(errors), int(n_ok), out.cpu().numpy()
+        # one launch into one buffer, one copy back
+        back, views = rs_ops.superframe_buffer(rs_dims, sf.device)
+        rs_ops.rs_check_superframes(sf[None], rs_dims, zero_after_fail=True,
+                                    out=views)
+        errors, out, n_ok = rs_ops.unpack_superframe_buffer(
+            back.cpu().numpy(), rs_dims)
     if out_vector is not None:
         if errors != -1:
             _buf_write(out_vector, slice(0, out.size), out)

@@ -22,8 +22,8 @@ Symbols go to the device once and every result is a tensor on that
 device. A host array goes to the card where there is one, unless the
 caller names a device. ``use_kernels=None`` takes the Hopper kernels
 (``acs_cuda.decode``: the fused ACS and the checkpoint walk; in the
-superframe chain also kernel I, the RS decoder) for symbols on a CUDA
-device and the plain path for symbols on the CPU;
+superframe chain also kernel I, the RS stage in one launch) for symbols
+on a CUDA device and the plain path for symbols on the CPU;
 ``use_kernels=True`` on CPU symbols raises. ``decode_ensemble_sharded``
 runs the chain data-parallel over the ranks of a mesh
 (``parallel.mesh``).
@@ -101,21 +101,16 @@ def decode_frames(flat: torch.Tensor, framebits: int, use_kernels: bool,
 def rs_superframes(sf: torch.Tensor, rs_dims: int,
                    use_kernels: bool | None = None):
     """The chains' RS stage: uint8[B, rs_dims*120] superframes ->
-    (audio uint8[B, rs_dims*110], errors int32[B]). Every superframe is
-    deinterleaved into its codewords, a [B, rs_dims, 120] view, and the
-    whole batch decoded at once: with kernels by kernel I, which reads the
-    view in place (``rs_ops.rs_decode_blocks``), without by its plain
-    version. ``use_kernels=None`` takes the kernel for a superframe batch
-    on a CUDA device."""
-    B = sf.shape[0]
-    blocks = sf.reshape(B, C.RS_N, rs_dims).transpose(1, 2)
-    decode = (rs_ops.rs_decode_blocks if want_kernels(use_kernels, sf.device)
-              else rs_ops.rs_decode_blocks_plain)
-    count, corrected = decode(blocks)      # [B, rs_dims], [B, rs_dims, 120]
-    any_fail = (count < 0).any(dim=1)
-    errors = torch.where(any_fail, -1, count.sum(dim=1)).to(torch.int32)
-    audio = corrected[:, :, :C.RS_KK].transpose(1, 2) \
-        .reshape(B, rs_dims * C.RS_KK).to(torch.uint8)
+    (audio uint8[B, rs_dims*110], errors int32[B]). Every codeword is
+    decoded and the audio keeps each as decoded, a failed one included
+    (errors says -1): with kernels by one launch of kernel I
+    (``rs_ops.rs_check_superframes``), without by its plain version.
+    ``use_kernels=None`` takes the kernel for a superframe batch on a
+    CUDA device."""
+    check = (rs_ops.rs_check_superframes
+             if want_kernels(use_kernels, sf.device)
+             else rs_ops.rs_check_superframes_plain)
+    errors, audio, _ = check(sf, rs_dims, zero_after_fail=False)
     return audio, errors
 
 

@@ -129,8 +129,10 @@ _ARGTYPES = {
                            _I, _P],
         "acs_words_launch": [_P, _L, _L, _I, _P, _I, _I, _P, _P, _I, _I, _P],
         "tb_words_launch": [_P, _I, _I, _P, _I, _P],
-        "rs_decode_launch": [_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _I,
-                             _P],
+        "rs_decode_launch": [_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _P,
+                             _I, _P],
+        "rs_superframes_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P,
+                                  _I, _P],
     },
     PROBES: {
         "kablate_launch": [_P, _L, _L, _I, _P, _I, _I, _I, _P, _P, _I, _I,
@@ -138,6 +140,12 @@ _ARGTYPES = {
         "kdtype_op_launch": [_I, _I, _P, _P, _P, _I, _P],
         "kdtype_chain_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
         "kilp_streams_launch": [_I, _I, _P, _P, _I, _I, _I, _P],
+        "rs_table_decode_launch": [_P, _I, _I, _I, _L, _L, _L, _P, _P, _P,
+                                   _P, _I, _P],
+        "rs_table_superframes_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P,
+                                        _P, _I, _P],
+        "rs_phases_launch": [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _P],
     },
 }
 
@@ -218,7 +226,12 @@ TB_WALK = Kernel(MAIN, "tb_walk_launch", "tb_walk")
 ACS_WORDS = Kernel(MAIN, "acs_words_launch", "acs_words")
 TB_WORDS = Kernel(MAIN, "tb_words_launch", "tb_words")
 RS_DECODE = Kernel(MAIN, "rs_decode_launch", "rs_decode")
+RS_SUPERFRAMES = Kernel(MAIN, "rs_superframes_launch", "rs_superframes")
 KABLATE = Kernel(PROBES, "kablate_launch", "kablate")
 KDTYPE_OP = Kernel(PROBES, "kdtype_op_launch", "kdtype_op")
 KDTYPE_CHAIN = Kernel(PROBES, "kdtype_chain_launch", "kdtype_chain")
 KILP_STREAMS = Kernel(PROBES, "kilp_streams_launch", "kilp_streams")
+RS_TABLE_DECODE = Kernel(PROBES, "rs_table_decode_launch", "rs_table_decode")
+RS_TABLE_SUPERFRAMES = Kernel(PROBES, "rs_table_superframes_launch",
+                              "rs_table_superframes")
+RS_PHASES = Kernel(PROBES, "rs_phases_launch", "rs_phases")

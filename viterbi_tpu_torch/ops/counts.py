@@ -1,4 +1,5 @@
-"""The launch counts of kernels A-D and I. Each wrapper adds one to its
+"""The launch counts of kernels A-D and I (I by its two entries,
+codewords and superframes). Each wrapper adds one to its
 ``.launches`` where it launches its kernel, and nowhere else; a caller
 sets them to 0 before a path and reads them after it, to show that the
 path went through the kernels."""
@@ -8,12 +9,14 @@ from __future__ import annotations
 from . import acs_cuda, rs
 from . import traceback as tb
 
-#: kernels A-D and I by their rows' names in chip_smoke.py's kernels line
+#: kernels A-D by their rows' names in chip_smoke.py's kernels line, and
+#: kernel I's two entries (its row, ``rs_decode``, counts both)
 KERNELS = {"acs_regs": (acs_cuda, "forward_regs"),
            "acs_words": (acs_cuda, "forward"),
            "tb_walk": (tb, "tb_walk"),
            "tb_words": (tb, "tb_words"),
-           "rs_decode": (rs, "rs_decode_blocks")}
+           "rs_decode": (rs, "rs_decode_blocks"),
+           "rs_superframes": (rs, "rs_check_superframes")}
 
 
 def zero_launches() -> None:

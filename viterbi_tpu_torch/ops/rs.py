@@ -23,11 +23,18 @@ are float32: 0/1 inputs and counts up to 960 are exact there (bf16
 results would round them).
 
 That masked form is the plain version, ``rs_decode_blocks_plain``: about
-340 small launches a call on a card, whatever the batch. On a card
-``rs_decode_blocks`` launches kernel I instead (``csrc/rs_decode.cu``, one
-warp a codeword, the tables in shared memory), once a call, on uint8 or
-int32 codewords laid out with any strides: the JAX package runs the same
-decoder as one jitted program.
+340 small launches a call on a card, whatever the batch. On a card kernel
+I (``csrc/rs_decode.cu``) runs instead, once a call, as the JAX package
+runs each of its two entries as one jitted program:
+
+* ``rs_check_superframes`` (the DAB+ chain's RS stage, the export):
+  uint8 superframes as they arrive in, the corrected audio interleaved,
+  each superframe's error sum and first failed codeword out;
+* ``rs_decode_blocks``: uint8 or int32 codewords laid out with any
+  strides in, counts and int32 codewords out.
+
+Their plain versions, ``rs_check_superframes_plain`` and
+``rs_decode_blocks_plain``, serve the CPU and the comparisons.
 """
 
 from __future__ import annotations
@@ -43,7 +50,6 @@ from . import _build
 _ATO_NP, _IOF_NP = C.gf256_tables()
 #: kernel I's field: the 768-entry antilog table, then index_of
 _KERNEL_TABLES_NP = np.concatenate([_ATO_NP, _IOF_NP]).astype(np.uint8)
-RS_BLOCKS_PER_SM = 8    # kernel I's grid at most; each warp then loops
 
 
 def _bit_matrices():
@@ -72,6 +78,32 @@ def _bit_matrices():
 
 
 _SYND_M, _CHIEN_M = _bit_matrices()
+
+
+def _synd_fragments() -> np.ndarray:
+    """``_SYND_M`` as kernel I's tensor cores read it: the B operand of
+    ``mma.m16n8k256.row.col...b1.and.popc``, ``uint32[10, 4, 32, 2]``.
+
+    The codeword's 960 bits (bit a of byte j at k = 8 j + a) are padded
+    to 1024, four k-steps of 256; n-tile i holds syndrome i's eight bits
+    (columns 8 i .. 8 i + 7). Lane l (group g = l // 4, tig = l % 4) holds
+    column g and, in word r, k = 256 step + 128 r + 32 tig + bit."""
+    m = np.zeros((1024, C.RS_NROOTS * 8), np.uint64)
+    m[:C.RS_N * 8] = _SYND_M
+    lane = np.arange(32)
+    bit = np.arange(32, dtype=np.uint64)
+    frag = np.zeros((C.RS_NROOTS, 4, 32, 2), np.uint64)
+    for i in range(C.RS_NROOTS):
+        for step in range(4):
+            for r in range(2):
+                k = (256 * step + 128 * r + 32 * (lane & 3))[:, None] \
+                    + np.arange(32)[None, :]                  # [lane, bit]
+                col = (8 * i + (lane >> 2))[:, None]
+                frag[i, step, :, r] = (m[k, col] << bit).sum(axis=1)
+    return frag.astype(np.uint32)
+
+
+_SYND_FRAGMENTS_NP = _synd_fragments()
 
 def _inverse_table() -> np.ndarray:
     """inv[x] = alpha^(255 - log x), inv[0] = 0 (as the Fermat x^254)."""
@@ -170,14 +202,20 @@ def rs_decode_blocks_plain(blocks: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=8)
-def _kernel_tables(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_KERNEL_TABLES_NP).to(device)
+def _kernel_consts(device: torch.device) -> tuple:
+    """Kernel I's constants on ``device``: the tables, B's fragments."""
+    return (torch.from_numpy(_KERNEL_TABLES_NP).to(device),
+            torch.from_numpy(_SYND_FRAGMENTS_NP.view(np.int32)).to(device))
 
 
 @functools.lru_cache(maxsize=8)
-def _grid_cap(index: int) -> int:
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * RS_BLOCKS_PER_SM
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _card_only(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def rs_decode_blocks(blocks: torch.Tensor):
@@ -198,14 +236,24 @@ def rs_decode_blocks(blocks: torch.Tensor):
     """
     if blocks.device.type == "cpu":
         return rs_decode_blocks_plain(blocks)
-    if blocks.device.type != "cuda":
-        raise ValueError(f"rs_decode_blocks: unsupported device "
-                         f"{blocks.device}")
+    got = launch_codewords(_build.RS_DECODE, blocks, "rs_decode_blocks")
+    rs_decode_blocks.launches += 1
+    return got
+
+
+rs_decode_blocks.launches = 0
+
+
+def launch_codewords(kernel: _build.Kernel, blocks: torch.Tensor,
+                     name: str):
+    """``rs_decode_blocks``' launch of ``kernel`` (kernel I, or a probe's
+    build of its device code) on a CUDA tensor; the caller counts it."""
+    _card_only(blocks, name)
     _check_blocks(blocks)
     elem = {torch.uint8: 1, torch.int32: 4}.get(blocks.dtype)
     if elem is None:
-        raise TypeError(f"rs_decode_blocks: kernel I reads uint8 or int32 "
-                        f"codewords, got {blocks.dtype}")
+        raise TypeError(f"{name}: kernel I reads uint8 or int32 codewords, "
+                        f"got {blocks.dtype}")
     lead = blocks.shape[:-1]
     view = blocks if blocks.dim() == 3 else blocks.unsqueeze(1)
     G, D = view.shape[0], view.shape[1]
@@ -214,16 +262,152 @@ def rs_decode_blocks(blocks: torch.Tensor):
                             device=blocks.device)
     if G * D == 0:
         return count, corrected
-    _build.RS_DECODE.launch(
+    tables, frags = _kernel_consts(blocks.device)
+    kernel.launch(
         blocks.device, view.data_ptr(), elem, G * D, D, view.stride(0),
-        view.stride(1), view.stride(2), _kernel_tables(blocks.device)
-        .data_ptr(), count.data_ptr(), corrected.data_ptr(),
-        _grid_cap(blocks.device.index))
-    rs_decode_blocks.launches += 1
+        view.stride(1), view.stride(2), tables.data_ptr(), frags.data_ptr(),
+        count.data_ptr(), corrected.data_ptr(), _sms(blocks.device.index))
     return count, corrected
 
 
-rs_decode_blocks.launches = 0
+def _check_superframes(sf: torch.Tensor, rs_dims: int) -> None:
+    if rs_dims < 1 or sf.dim() != 2 or sf.shape[1] != rs_dims * C.RS_N:
+        raise ValueError(f"superframes must be [G, rs_dims*{C.RS_N}] with "
+                         f"rs_dims >= 1, got {list(sf.shape)} and rs_dims "
+                         f"{rs_dims}")
+
+
+def rs_check_superframes_plain(sf: torch.Tensor, rs_dims: int, *,
+                               zero_after_fail: bool):
+    """``rs_check_superframes`` in plain torch on any device:
+    ``rs_decode_blocks_plain`` on each superframe's deinterleaved
+    codewords, then the sums, the first failure and the interleave."""
+    _check_superframes(sf, rs_dims)
+    G = sf.shape[0]
+    count, corrected = rs_decode_blocks_plain(
+        sf.reshape(G, C.RS_N, rs_dims).transpose(1, 2).reshape(-1, C.RS_N))
+    count = count.reshape(G, rs_dims)
+    corrected = corrected.reshape(G, rs_dims, C.RS_N)
+    failed = count < 0
+    any_failed = failed.any(dim=1)
+    first_fail = failed.to(torch.int32).argmax(dim=1)  # gated by any_failed
+    errors = torch.where(any_failed, -1, count.sum(dim=1)).to(torch.int32)
+    n_ok = torch.where(any_failed, first_fail, rs_dims).to(torch.int32)
+    data = corrected[:, :, :C.RS_KK]
+    if zero_after_fail:
+        cw_idx = torch.arange(rs_dims, device=sf.device)
+        data = torch.where((cw_idx[None, :] < n_ok[:, None])[..., None],
+                           data, 0)
+    out = data.transpose(1, 2).reshape(G, rs_dims * C.RS_KK) \
+        .to(torch.uint8)
+    return errors, out, n_ok
+
+
+def rs_check_superframes(sf: torch.Tensor, rs_dims: int, *,
+                         zero_after_fail: bool, out: tuple | None = None):
+    """Check and correct a batch of DAB+ superframes: RScheckSuperframe
+    (rschecksf.cpp:64-93) over the rows of ``sf``.
+
+    ``sf``: uint8 [G, rs_dims*120], each row a byte-interleaved
+    superframe (codeword n's byte j at j * rs_dims + n). Returns on its
+    device:
+      * errors int32[G]: corrected bytes, or -1 if any codeword is
+        uncorrectable;
+      * out uint8[G, rs_dims*110]: the corrected data bytes, interleaved;
+        with ``zero_after_fail`` zero from the first failed codeword on
+        (the export's form), else every codeword as decoded (the chain's);
+      * n_ok int32[G]: the first failed codeword, else rs_dims.
+
+    ``out``: (errors, data, n_ok) tensors of those shapes and types on
+    ``sf``'s device to write into and return (``superframe_buffer``).
+
+    On a CUDA tensor this launches kernel I once (rows any distance
+    apart, bytes contiguous), and ``rs_check_superframes.launches``
+    counts the launches; on a CPU tensor (any integer type) it is
+    ``rs_check_superframes_plain``.
+    """
+    if sf.device.type == "cpu":
+        got = rs_check_superframes_plain(sf, rs_dims,
+                                         zero_after_fail=zero_after_fail)
+        if out is None:
+            return got
+        for o, g in zip(out, got, strict=True):
+            o.copy_(g)
+        return out
+    got = launch_superframes(_build.RS_SUPERFRAMES, sf, rs_dims,
+                             zero_after_fail, out, "rs_check_superframes")
+    rs_check_superframes.launches += 1
+    return got
+
+
+rs_check_superframes.launches = 0
+_RESULT_TYPES = (torch.int32, torch.uint8, torch.int32)
+
+
+def launch_superframes(kernel: _build.Kernel, sf: torch.Tensor,
+                       rs_dims: int, zero_after_fail: bool,
+                       out: tuple | None, name: str):
+    """``rs_check_superframes``' launch of ``kernel`` (kernel I, or a
+    probe's build of its device code) on a CUDA tensor; the caller counts
+    it."""
+    _card_only(sf, name)
+    _check_superframes(sf, rs_dims)
+    if sf.dtype != torch.uint8:
+        raise TypeError(f"{name}: kernel I reads uint8 superframes, got "
+                        f"{sf.dtype}")
+    if sf.shape[1] and sf.stride(1) != 1:
+        raise ValueError(f"{name}: a superframe's bytes must be "
+                         f"contiguous")
+    G, dev = sf.shape[0], sf.device
+    if out is None:
+        out = _result_buffer(G, rs_dims, dev)[1]
+    else:
+        shapes = ((G,), (G, rs_dims * C.RS_KK), (G,))
+        for o, shape, dtype in zip(out, shapes, _RESULT_TYPES, strict=True):
+            if (tuple(o.shape) != shape or o.dtype != dtype
+                    or o.device != dev or not o.is_contiguous()):
+                raise ValueError(f"{name}: out must be contiguous {dtype} "
+                                 f"{list(shape)} on {dev}")
+    errors, data, n_ok = out
+    if G == 0:
+        return out
+    tables, frags = _kernel_consts(dev)
+    # a single row's stride is any number: its own length aligns best
+    s_g = sf.stride(0) if G > 1 else sf.shape[1]
+    kernel.launch(
+        dev, sf.data_ptr(), s_g, G, rs_dims, int(zero_after_fail),
+        tables.data_ptr(), frags.data_ptr(), errors.data_ptr(),
+        data.data_ptr(), n_ok.data_ptr(), _sms(dev.index))
+    return out
+
+
+def _result_buffer(G: int, rs_dims: int, device) -> tuple:
+    """One uint8 allocation for G superframes' results: the corrected
+    bytes at 0, then errors and n_ok as int32 from a 16-byte boundary.
+    Returns (buffer, (errors [G], data [G, rs_dims*110], n_ok [G]))."""
+    n = G * rs_dims * C.RS_KK
+    tail = -(-n // 16) * 16
+    buf = torch.empty(tail + 8 * G, dtype=torch.uint8, device=device)
+    return buf, (buf[tail:tail + 4 * G].view(torch.int32),
+                 buf[:n].view(G, rs_dims * C.RS_KK),
+                 buf[tail + 4 * G:].view(torch.int32))
+
+
+def superframe_buffer(rs_dims: int, device) -> tuple:
+    """One superframe's three results in one uint8 buffer, so that one
+    copy brings them back. Returns (buffer, (errors [1], data [1,
+    rs_dims*110], n_ok [1]) views for ``rs_check_superframes``'s ``out``);
+    ``unpack_superframe_buffer`` reads a host copy."""
+    return _result_buffer(1, rs_dims, device)
+
+
+def unpack_superframe_buffer(host: np.ndarray, rs_dims: int) -> tuple:
+    """(errors int, data uint8[rs_dims*110], n_ok int) of a host copy of
+    ``superframe_buffer``'s buffer."""
+    n = rs_dims * C.RS_KK
+    tail = -(-n // 16) * 16
+    errors, n_ok = (int(v) for v in host[tail:tail + 8].view(np.int32))
+    return errors, host[:n], n_ok
 
 
 def _locate(data: torch.Tensor, gf, T: dict):
@@ -357,8 +541,8 @@ def interleave_data(blocks: torch.Tensor, rs_dims: int) -> torch.Tensor:
 def rs_check_superframe(p: torch.Tensor, rs_dims: int):
     """Batched twin of RScheckSuperframe (rschecksf.cpp:64-93).
 
-    ``p``: integer tensor [rs_dims * 120]. Returns (errors, out, n_ok) on
-    its device:
+    ``p``: [rs_dims * 120] bytes (uint8; on the CPU any integer type).
+    Returns (errors, out, n_ok) on its device:
       * errors int32 scalar: total corrected bytes, or -1 if any codeword
         is uncorrectable (the reference aborts at the first such one)
       * out uint8[rs_dims * 110]: corrected data. On -1 the reference has
@@ -367,15 +551,10 @@ def rs_check_superframe(p: torch.Tensor, rs_dims: int):
         first failure onward are zero-filled, and
       * n_ok int32 scalar says how many leading codewords are valid
         (rs_dims when errors != -1).
+    ``rs_check_superframes`` of one superframe into one buffer
+    (``superframe_buffer``): kernel I once on a card.
     """
-    count, corrected = rs_decode_blocks(deinterleave(p, rs_dims))
-    failed = count < 0
-    any_failed = failed.any()
-    first_fail = failed.to(torch.int32).argmax()   # gated by any_failed
-    errors = torch.where(any_failed, -1, count.sum())
-    n_ok = torch.where(any_failed, first_fail, rs_dims)
-    cw_idx = torch.arange(rs_dims, device=p.device)
-    out_blocks = torch.where((cw_idx < n_ok)[:, None],
-                             corrected[:, :C.RS_KK], 0)
-    out = interleave_data(out_blocks, rs_dims).to(torch.uint8)
-    return errors.to(torch.int32), out, n_ok.to(torch.int32)
+    _, views = superframe_buffer(rs_dims, p.device)
+    errors, out, n_ok = rs_check_superframes(p.reshape(1, -1), rs_dims,
+                                             zero_after_fail=True, out=views)
+    return errors[0], out[0], n_ok[0]

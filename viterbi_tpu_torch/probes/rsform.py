@@ -1,5 +1,5 @@
-"""Two exact forms of the RS decoder's GF(256) arithmetic and kernel I,
-timed against each other on the card.
+"""Two exact forms of the RS decoder's GF(256) arithmetic and kernel I in
+both its syndrome forms, timed against each other on the card.
 
 ``ops.rs``'s plain version computes the field through the reference's
 log/antilog tables (a gather is one small launch on a GPU). The JAX
@@ -7,9 +7,12 @@ package computes it gather-free, for a machine where gathers are slow: a
 carryless multiply, the Fermat inverse and square-and-multiply powers.
 That bitwise form is kept here, outside the decode path, as the
 cross-check of the tables and for this timing. Both are plain PyTorch,
-some 340 launches a call; the third row is kernel I
-(``ops.rs.rs_decode_blocks`` on the card, ``csrc/rs_decode.cu``), one
-launch, held bit for bit against both.
+some 340 launches a call. The third row is kernel I
+(``ops.rs.rs_decode_blocks`` on the card, ``csrc/rs_decode.cu``: the
+syndromes as a binary tensor-core product), the fourth the same device
+code with the syndromes through the tables (``csrc/probes/rs_synd.cu``,
+``rs_decode_blocks_table_synd``), one launch each, all four held bit for
+bit against each other.
 
 Usage: python -m viterbi_tpu_torch.probes.rsform [--codewords N] [--iters N]
 """
@@ -23,6 +26,7 @@ import torch
 
 from .. import constants as C
 from .. import golden
+from ..ops import _build
 from ..ops import rs as rs_ops
 from . import _common
 
@@ -104,11 +108,45 @@ def rs_decode_blocks_bitwise(blocks: torch.Tensor):
     return rs_ops.decode_with_field(blocks, Bitwise)
 
 
+def rs_decode_blocks_table_synd(blocks: torch.Tensor):
+    """``ops.rs.rs_decode_blocks`` through kernel I's device code with the
+    other syndrome form, the tables (``csrc/probes/rs_synd.cu``), on a
+    card tensor; its plain version on a CPU tensor. ``.launches`` counts
+    the launches."""
+    if blocks.device.type == "cpu":
+        return rs_ops.rs_decode_blocks_plain(blocks)
+    got = rs_ops.launch_codewords(_build.RS_TABLE_DECODE, blocks,
+                                  "rs_decode_blocks_table_synd")
+    rs_decode_blocks_table_synd.launches += 1
+    return got
+
+
+rs_decode_blocks_table_synd.launches = 0
+
+
+def rs_check_superframes_table_synd(sf: torch.Tensor, rs_dims: int, *,
+                                    zero_after_fail: bool):
+    """``ops.rs.rs_check_superframes`` with the table syndrome form, as
+    ``rs_decode_blocks_table_synd``."""
+    if sf.device.type == "cpu":
+        return rs_ops.rs_check_superframes_plain(
+            sf, rs_dims, zero_after_fail=zero_after_fail)
+    got = rs_ops.launch_superframes(_build.RS_TABLE_SUPERFRAMES, sf, rs_dims,
+                                    zero_after_fail, None,
+                                    "rs_check_superframes_table_synd")
+    rs_check_superframes_table_synd.launches += 1
+    return got
+
+
+rs_check_superframes_table_synd.launches = 0
+
 FORMS = {"table": rs_ops.rs_decode_blocks_plain,
          "bitwise": rs_decode_blocks_bitwise}
-#: the rows of the table: both field forms, then kernel I (on a CPU
-#: tensor its plain version)
-DECODERS = {**FORMS, "kernel": rs_ops.rs_decode_blocks}
+#: kernel I in its two syndrome forms (on a CPU tensor its plain version)
+KERNELS = {"kernel": rs_ops.rs_decode_blocks,
+           "kernel_table_synd": rs_decode_blocks_table_synd}
+#: the rows of the table: both field forms, then kernel I's two forms
+DECODERS = {**FORMS, **KERNELS}
 
 
 def corrupt_mix(rng, base, frac, max_errs, uncorrectable=0):
@@ -130,10 +168,10 @@ def corrupt_mix(rng, base, frac, max_errs, uncorrectable=0):
 
 def run(codewords: int = CODEWORDS, iters: int = 3) -> list[dict]:
     """Every form on every mix: equal to each other, counts as planted,
-    three codewords equal to the golden model; ms, kernel I's launches
-    (its wrapper's count) and device launches (the profiler's) a call."""
+    three codewords equal to the golden model; ms, the row's kernel's
+    launches (its wrapper's count; 0 for the field forms) and device
+    launches (the profiler's) a call."""
     dev = _common.require_card()
-    kernel = DECODERS["kernel"]
     rng = np.random.default_rng(5)
     clean = np.tile(golden.rs_encode_many(rng.integers(
         0, 256, (256, C.RS_KK), dtype=np.uint8)).astype(np.int32),
@@ -144,16 +182,17 @@ def run(codewords: int = CODEWORDS, iters: int = 3) -> list[dict]:
         blocks = torch.from_numpy(cws).to(dev)
         results = {}
         for form, decode in DECODERS.items():
-            # kernel I's launches a call, from its counter over the result's
-            # call and the timed ones (the warm-up among them)
-            before = kernel.launches
+            # the row's kernel's launches a call, from its counter over the
+            # result's call and the timed ones (the warm-up among them)
+            before = {k: f.launches for k, f in KERNELS.items()}
             results[form] = decode(blocks)
             ms = _common.device_ms(lambda: decode(blocks), iters, 1)
-            per_call, rem = divmod(kernel.launches - before, iters + 2)
-            if rem:
-                raise AssertionError(f"{mix} {form}: kernel I x "
-                                     f"{kernel.launches - before} in "
-                                     f"{iters + 2} calls")
+            launched = {k: f.launches - before[k] for k, f in KERNELS.items()}
+            per_call, rem = divmod(launched.pop(form, 0), iters + 2)
+            if rem or any(launched.values()):
+                raise AssertionError(f"{mix} {form}: {per_call} a call, "
+                                     f"others {launched}, in {iters + 2} "
+                                     f"calls")
             rows.append({
                 "mix": mix, "form": form, "ms": ms,
                 "kernel_launches": per_call,
@@ -184,12 +223,13 @@ def main(argv=None) -> list[dict]:
     _common.require_card()
     rows = run(args.codewords, args.iters)
     print(f"rs_decode_blocks on {_common.card_line()}: {args.codewords} "
-          f"codewords; forms and kernel I equal, counts as planted")
+          f"codewords; the field forms and kernel I's two forms equal, "
+          f"counts as planted")
     for r in rows:
-        print(f"  {r['mix']:17s} {r['form']:8s} {r['ms']:8.2f} ms  "
-              f"{args.codewords / r['ms'] / 1e3:6.2f} M codewords/s  "
-              f"{r['launches']} launches ({r['kernel_launches']} of kernel "
-              f"I)")
+        print(f"  {r['mix']:17s} {r['form']:17s} {r['ms']:8.4f} ms  "
+              f"{args.codewords / r['ms'] / 1e3:7.2f} M codewords/s  "
+              f"{r['launches']} launches ({r['kernel_launches']} of the "
+              f"row's kernel)")
     return rows
 
 

@@ -165,7 +165,7 @@ def rs(dev, quick: bool) -> dict:
         inter = cws.T.reshape(-1).astype(np.uint8)
         g_err, g_out = golden.rs_check_superframe(inter, rs_dims)
         errors, out, _ = rs_ops.rs_check_superframe(
-            torch.from_numpy(inter.astype(np.int32)).to(dev), rs_dims)
+            torch.from_numpy(inter).to(dev), rs_dims)
         sf_bad += int(int(errors) != g_err
                       or not np.array_equal(out.cpu().numpy(), g_out))
     fuzz = rng.integers(0, 256, (64, C.RS_N)).astype(np.int64)
