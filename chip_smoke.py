@@ -129,7 +129,15 @@ Phases (each raises on failure, so the exit code is non-zero):
      mismatches, kernels A to D launched) and tools.overlap_sweep at 0 dB,
      seed 0, overlaps 24 and 96 (the plain form equal to
      OVERLAP_SWEEP.json's cells, the kernel form equal to the plain form
-     at its effective overlap).
+     at its effective overlap);
+ 19. first use: in a fresh python3 process, with no initialize() call,
+     deconvolve_batch of 64 frames of 3072 bits must set the dispatcher
+     up on the card with the cuda_fused rung, launch kernels A and B once
+     each and equal golden on 4 frames; rs_check_superframe must launch
+     kernel I once and equal golden; decode_audio_superframes of a host
+     array with no device must return tensors on the card, equal to the
+     plain path on the CPU; a StreamSession with no device must be on the
+     card.
 Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
 before it lists the ten kernels as JSON, each with its launches on its
@@ -209,6 +217,7 @@ RING_HOLD = (4, 4, 3072)  # (streams, seq ranks, block bits): a small ring
 SWEEP_FRAMES = 4096     # frames a rank in the scaling sweep
 RANK_LIMIT_S = 300      # wall-clock limit of one spawned job
 GROUP_TIMEOUT_S = 120   # a rank's longest wait for a peer
+FIRST_USE_LIMIT_S = 300  # phase 19's fresh process, kernel load included
 
 # The card's peaks for the bounds: memory rate (data sheet), and issue
 # rates per SM and clock: 64 int32 lanes, 128 float32 lanes (an add or a
@@ -1882,6 +1891,99 @@ def tools_phase(dev, tag) -> dict:
     return paths
 
 
+# --- phase 19: first use in a fresh process --------------------------------
+
+# Run by ``python3 -c`` from the repository root, with a config file of
+# its own: nothing in this process has set the dispatcher up. Prints one
+# JSON object as its last line.
+FIRST_USE_CODE = """
+import json
+import numpy as np
+import torch
+import viterbi_tpu_torch
+from viterbi_tpu_torch import constants as C
+from viterbi_tpu_torch import golden
+from viterbi_tpu_torch.harness import channel
+from viterbi_tpu_torch.models import dab
+from viterbi_tpu_torch.ops import counts
+from viterbi_tpu_torch.parallel import StreamSession
+from viterbi_tpu_torch.runtime import dispatch
+
+res = {}
+st = dispatch.state()
+assert st.device is None, f"set up at import: {st.device}"
+_, syms = channel.make_frames(64, 3072, seed=19)
+counts.zero_launches()
+ret, out = viterbi_tpu_torch.deconvolve_batch(3072, syms)
+torch.cuda.synchronize()
+res["deconvolve_batch"] = counts.launches()
+res["variant"] = dispatch.VARIANTS[st.variant]
+res["device"] = str(st.device)
+assert ret == 0 and out.shape == (64, 384), (ret, out.shape)
+assert np.array_equal(out[:4], golden.deconvolve_many(3072, syms[:4])), \
+    "first-use decode != golden"
+
+rng = np.random.default_rng(19)
+msgs = rng.integers(0, 256, (4, C.RS_KK), dtype=np.uint8)
+cws = golden.rs_encode_many(msgs).astype(np.int64)
+cws[1, :3] ^= 0x5A
+sf = cws.T.reshape(-1).astype(np.uint8)
+buf = np.zeros(4 * C.RS_KK, np.uint8)
+counts.zero_launches()
+errors = viterbi_tpu_torch.rs_check_superframe(sf, 0, 4, buf)
+torch.cuda.synchronize()
+res["rs_check_superframe"] = counts.launches()
+g_err, g_out = golden.rs_check_superframe(sf, 4)
+assert errors == g_err == 3 and np.array_equal(buf, g_out), \
+    (errors, g_err)
+
+cfg = dab.SubchannelConfig(32)
+frames = rng.integers(0, 256, (2 * dab.SUPERFRAME_FRAMES,
+                               C.RATE * (cfg.framebits + C.TAIL_BITS)))
+host = frames.reshape(2, dab.SUPERFRAME_FRAMES, -1).astype(np.int32)
+audio, errs = dab.decode_audio_superframes(host, 32)
+assert audio.is_cuda and errs.is_cuda, (audio.device, errs.device)
+cpu_audio, cpu_errs = dab.decode_audio_superframes(host, 32, device="cpu")
+assert torch.equal(audio.cpu(), cpu_audio) and \
+    torch.equal(errs.cpu(), cpu_errs), "superframes: card != CPU"
+res["superframes_device"] = str(audio.device)
+res["session_device"] = str(StreamSession(4).device)
+assert res["session_device"].startswith("cuda"), res["session_device"]
+print(json.dumps(res))
+"""
+
+
+def first_use_phase(tag) -> dict:
+    """Phase 19: the exports, a chain and a session in a process that
+    never called initialize(); returns the launches of its two export
+    calls together."""
+    cfg = ROOT / "build" / "chip_smoke" / "first_use" / "viterbi.txt"
+    cfg.parent.mkdir(parents=True, exist_ok=True)
+    cfg.unlink(missing_ok=True)
+    from viterbi_tpu_torch.runtime import config as config_mod
+    env = dict(os.environ, **{config_mod.CONFIG_ENV: str(cfg)})
+    proc = subprocess.run([sys.executable, "-c", FIRST_USE_CODE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=FIRST_USE_LIMIT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"first-use process exited with "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    dec, rs = res["deconvolve_batch"], res["rs_check_superframe"]
+    assert res["variant"] == "cuda_fused", res
+    assert res["device"].startswith("cuda"), res
+    assert dec["acs_regs"] == 1 and dec["tb_walk"] == 1, dec
+    assert rs["rs_superframes"] == 1 and rs["rs_decode"] == 0, rs
+    assert res["superframes_device"].startswith("cuda"), res
+    print(f"{tag} first use, no initialize(): {res['variant']} on "
+          f"{res['device']}; deconvolve_batch launches {dec}; "
+          f"rs_check_superframe launches {rs}; decode_audio_superframes of "
+          f"a host array on {res['superframes_device']}, equal to the CPU's "
+          f"plain path; StreamSession on {res['session_device']}")
+    return {k: dec[k] + rs[k] for k in dec}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2326,6 +2428,11 @@ def main() -> int:
     rung("cuda_fused")
     paths.update(tools_phase(dev, tag))
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 19: first use in a fresh process ----------------------------
+    t0 = time.perf_counter()
+    paths["first_use"] = first_use_phase(tag)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
     csrc = "viterbi_tpu_torch/csrc/"
     meta = {

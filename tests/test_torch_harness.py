@@ -33,7 +33,7 @@ def _configs(tmp_path, monkeypatch):
     monkeypatch.setattr(dispatch, "get_caps",
                         lambda root=None: real(root) | dispatch.CAP_KERNELS)
     viterbi_tpu.initialize()
-    viterbi_tpu_torch.initialize()
+    viterbi_tpu_torch.initialize(device="cpu")
     yield
     # leave both dispatchers in their automatic state for later tests
     monkeypatch.setattr(dispatch, "get_caps", real)

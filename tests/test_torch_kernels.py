@@ -621,7 +621,7 @@ def test_rs_stage_and_export_are_one_launch_each(cuda):
     assert rs_ops.rs_check_superframes.launches == before + 1
     assert _common.count_launches(
         lambda: dab.rs_superframes(sf, 16, True)) == 1
-    api.initialize()
+    api.initialize(device=cuda)
     one = sf[3].cpu().numpy()
     before = rs_ops.rs_check_superframes.launches
     ret = api.rs_check_superframe(one, 0, 16)

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+import viterbi_tpu_torch
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import benchmark
 from viterbi_tpu_torch.ops import acs, acs_cuda
 from viterbi_tpu_torch.ops import traceback as tb
+from viterbi_tpu_torch.runtime import config as config_mod
 from viterbi_tpu_torch.utils import native, pipeline
 
 
@@ -49,7 +51,9 @@ def lib(request, monkeypatch):
     return request.param
 
 
-def test_library_builds_under_build_native():
+def test_library_builds_under_build_native(tmp_path, monkeypatch):
+    monkeypatch.setenv(config_mod.CONFIG_ENV, str(tmp_path / "port.txt"))
+    viterbi_tpu_torch.initialize(device="cpu")     # the report's device
     path = native.library_path()
     assert path.parent.parent == native.ROOT / "build" / "native"
     assert native.have_native() == path.exists()

@@ -27,7 +27,7 @@ def _fresh_config(tmp_path, monkeypatch):
     jax_cfg.write_text("a:0\ncompile_cache=0\n")
     monkeypatch.setenv(jax_config.CONFIG_ENV, str(jax_cfg))
     viterbi_tpu.initialize()
-    viterbi_tpu_torch.initialize()
+    viterbi_tpu_torch.initialize(device="cpu")
 
 
 def test_committed_corpus_replays_bit_exactly():

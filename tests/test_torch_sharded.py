@@ -31,7 +31,7 @@ from viterbi_tpu_torch.runtime import dispatch
 @pytest.fixture(autouse=True)
 def _fresh_config(tmp_path, monkeypatch):
     monkeypatch.setenv(config_mod.CONFIG_ENV, str(tmp_path / "port.txt"))
-    viterbi_tpu_torch.initialize()
+    viterbi_tpu_torch.initialize(device="cpu")
     yield
     viterbi_tpu_torch.initialize()
 
@@ -232,7 +232,7 @@ def test_two_real_processes_over_gloo(tmp_path, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 def test_card_decode_sharded_launches_a_and_b_in_every_rank(cuda, n):
-    viterbi_tpu_torch.initialize()
+    viterbi_tpu_torch.initialize(device=cuda)
     assert dispatch.VARIANTS[dispatch.state().variant] == "cuda_fused"
     _, syms = channel.make_frames(64 * n, 3072, seed=n)
     want = viterbi_tpu_torch.deconvolve_batch(3072, syms)[1]

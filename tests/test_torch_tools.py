@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import viterbi_tpu_torch
 from viterbi_tpu_torch.tools import (_record, ingest, ladder, latency,
                                      make_corpus, overlap_sweep, parity,
                                      session, stream)
@@ -40,10 +41,12 @@ def cuda():
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_config(tmp_path_factory):
     """A config file of this module's own: another test's rung override
-    must not reach the tools' calls through the API."""
+    must not reach the tools' calls through the API. The API decodes on
+    the CPU, as the tools' CPU runs ask."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("VITERBI_TPU_TORCH_CONFIG",
                   str(tmp_path_factory.mktemp("config") / "viterbi.txt"))
+        viterbi_tpu_torch.initialize(device="cpu")
         yield
 
 
@@ -307,6 +310,7 @@ def test_a_cpu_record_is_never_written_as_gpu(tmp_path, capsys):
 
 @pytest.mark.cuda
 def test_parity_quick_launches_kernels_a_to_d_on_the_card(cuda):
+    viterbi_tpu_torch.initialize(device=cuda)
     doc = parity.run(quick=True)
     assert doc["ok"] and doc["mismatches"] == 0
     assert not _record.missing(doc["launches"], _record.KERNELS)

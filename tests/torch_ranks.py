@@ -98,7 +98,7 @@ def two_process_worker(rank, world_size, store, data, tail, syms, framebits):
 
     import viterbi_tpu_torch
     from viterbi_tpu_torch.parallel import batch, streaming
-    viterbi_tpu_torch.initialize()
+    viterbi_tpu_torch.initialize(device="cpu")
     ring = M.make_mesh(1, 2, rank=rank, world_size=world_size,
                        store=dist.PrefixStore("ring", store), device="cpu",
                        timeout=TIMEOUT)

@@ -6,8 +6,11 @@ the DAB+ audio-superframe chain and EEP/UEP puncturing (``models``), on
 an NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``): the
 fused register-exchange ACS and the checkpoint-walk traceback on the
 main path, the decisions kernel and its word walk on the ``cuda_words``
-rung, and the timing probes of ``probes``. On a machine without a CUDA
-device every path runs on the plain torch versions of those kernels.
+rung, and the timing probes of ``probes``. Every entry point decodes on
+the card unless the caller asks for the CPU (``device="cpu"``, CPU
+tensors, or ``initialize(device="cpu")``), and raises
+``runtime.placement.NoDeviceError`` where there is no card; on the CPU
+the kernels run as their plain torch versions.
 
 This package imports torch and numpy only — never jax, never
 ``viterbi_tpu``.

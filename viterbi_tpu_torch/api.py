@@ -14,12 +14,19 @@ Return-code contracts match the reference:
   * ``initialize`` re-reads the config and re-arms safe mode
     (dllmain.cpp:156-160).
 
+No export needs ``initialize()`` first: the first call sets the
+dispatcher up (``dispatch.ready``), as the reference does at load, on
+the card, and raises ``placement.NoDeviceError`` where there is none
+unless ``initialize(device="cpu")`` asked for the CPU. That raise is not
+a decoder fault: it returns no error code and latches nothing.
+
 Symbols arrive as host arrays, go to the device once per call, and the
 decoded bytes come back as numpy uint8.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -65,15 +72,25 @@ def last_rs_output() -> np.ndarray | None:
     return getattr(_tls, "rs_out", None)
 
 
-def initialize(config_path: str | None = None) -> bool:
+def _ready(fn):
+    """Set the dispatcher up at the export's first use, outside the fault
+    guard, so that a missing card raises instead of latching."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        dispatch.ready()
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def initialize(config_path: str | None = None, *, device=None) -> bool:
     """Re-init: clears the safe-mode latch, re-reads the config,
-    re-probes the backend (building the kernels on first use)."""
-    ok = dispatch.initialize(config_path)
-    cfg = dispatch.state().config
-    calllog.configure(cfg.log_calls, cfg.log_symbols)
-    return ok
+    re-probes the backend (building the kernels on first use). The
+    device is ``device``, else the one chosen before, else the card
+    (``placement.NoDeviceError`` where there is none)."""
+    return dispatch.initialize(config_path, device=device)
 
 
+@_ready
 def get_caps() -> int:
     """Backend capability bitmask (analog of GetCPUCaps)."""
     return dispatch.get_caps(dispatch.state().config.compile_cache)
@@ -84,6 +101,7 @@ def get_caps() -> int:
 DAB_LADDER_KBPS = (8, 32, 64, 96, 128, 192, 384)
 
 
+@_ready
 def wake_up(framebits: int = 3072, batch: int = 1, ladder=False) -> None:
     """Warm the decode path — the analog of WakeUpYMM's pre-warming of
     cold SIMD stages (dllmain.cpp:45-56). Here the cold stages are the
@@ -195,6 +213,7 @@ def _decode_batch(symbols: np.ndarray, framebits: int,
     return _decode_tensor(syms, framebits, variant, packed).cpu().numpy()
 
 
+@_ready
 @faults.guarded(_SAFE)
 def deconvolve(framebits: int, symbols, input_length: int = 0,
                output: np.ndarray | None = None) -> int:
@@ -227,6 +246,7 @@ def deconvolve(framebits: int, symbols, input_length: int = 0,
     return 0
 
 
+@_ready
 @faults.guarded((_SAFE, None))
 def deconvolve_batch(framebits: int, symbols_batch,
                      packed: bool = False) -> tuple[int, np.ndarray]:
@@ -294,6 +314,7 @@ def _write_prefix(out_vector, out: np.ndarray, rs_dims: int,
         view[np.unravel_index(idx, view.shape)] = vals
 
 
+@_ready
 @faults.guarded(-1)
 def rs_check_superframe(p, start_ix: int = 0, rs_dims: int = 0,
                         out_vector=None) -> int:

@@ -108,7 +108,7 @@ def dryrun_rank(rank: int, world_size: int, store, device: str) -> dict:
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    api.initialize()
+    api.initialize(device=dev)
     n = world_size
     inp = dryrun_inputs(n)
     res = {"rings": {}, "launches": {}}

@@ -8,10 +8,13 @@ variant, and fault-injects the recovery subsystem.
 CLI (flags mirror the reference, dashes also accepted):
     python -m viterbi_tpu_torch.harness.benchmark [/f frames] [/t loops]
                                                   [/not] [/json PATH]
-      /f    warm-up+BER frames, 100..25000 (default 500)
-      /t    timed decode loops (default 100)
-      /not  skip the fault-injection ("exception") tests
-      /json write the machine-readable report
+                                                  [--device cpu]
+      /f       warm-up+BER frames, 100..25000 (default 500)
+      /t       timed decode loops (default 100)
+      /not     skip the fault-injection ("exception") tests
+      /json    write the machine-readable report
+      /device  the device to decode on: the card by default (a raise
+               without one), ``cpu`` to run on the CPU
 
 The exit code is 0 only when every variant agrees on the BER/FER counts,
 every variant's device-resident run succeeds (on a card), the Eb/N0
@@ -48,7 +51,7 @@ def _supported_variants() -> list[int]:
 
 
 def _on_card() -> bool:
-    return bool(dispatch.state().caps & dispatch.CAP_CUDA)
+    return dispatch.ready().device.type == "cuda"
 
 
 def select_variant(variant: int) -> None:
@@ -148,7 +151,7 @@ def device_speed_test(variant: int, loops: int = 30,
     nsteps = framebits + C.TAIL_BITS
     gen = torch.Generator(device="cuda").manual_seed(0)
     syms = torch.randint(0, 256, (batch, C.RATE * nsteps), generator=gen,
-                         dtype=torch.int32, device=dispatch.state().device)
+                         dtype=torch.int32, device=dispatch.ready().device)
     for _ in range(max(3, loops // 4)):                   # warm up
         api._decode_tensor(syms, framebits, name)
     torch.cuda.synchronize()
@@ -179,7 +182,7 @@ def fault_injection_test() -> bool:
 
 
 def environment_report() -> str:
-    st = dispatch.state()
+    st = dispatch.ready()
     if torch.cuda.is_available():
         device = (f"{torch.cuda.get_device_name(0)} "
                   f"x{torch.cuda.device_count()}")
@@ -189,6 +192,7 @@ def environment_report() -> str:
         f"device: {device}",
         f"torch: {torch.__version__} (CUDA {torch.version.cuda})",
         f"caps: 0x{st.caps:x}",
+        f"decode device: {st.device}",
         f"variants supported: "
         f"{[dispatch.VARIANTS[i] for i in _supported_variants()]}",
         f"config: {st.config.path}",
@@ -220,7 +224,7 @@ def _tune(report: dict, variants: list[int], device_rates: dict) -> int:
 def main(argv=None) -> dict:
     """Run the harness; returns the report (also written with /json)."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    frames, loops, test_exc, json_path = 500, 100, True, None
+    frames, loops, test_exc, json_path, device = 500, 100, True, None, None
     i = 0
 
     def val(j):
@@ -238,10 +242,12 @@ def main(argv=None) -> dict:
             test_exc = False; i += 1
         elif a == "json":
             json_path = val(i + 1); i += 2
+        elif a == "device":
+            device = val(i + 1); i += 2
         else:
             i += 1
 
-    api.initialize()
+    api.initialize(device=device)
     env = environment_report()
     print(env)
     variants = _supported_variants()

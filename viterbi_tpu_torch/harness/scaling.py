@@ -46,7 +46,7 @@ def _sweep_rank(rank: int, world_size: int, store, frames_per_device: int,
     from ..parallel import batch as batch_mod
     from ..parallel import mesh as mesh_mod
 
-    viterbi_tpu_torch.initialize()
+    viterbi_tpu_torch.initialize(device=device)
     mesh = mesh_mod.make_mesh(world_size, 1, rank=rank,
                               world_size=world_size, store=store,
                               device=device)

@@ -32,9 +32,7 @@ def decode_sharded(symbols, framebits: int, mesh: mesh_mod.Mesh | None = None,
     """
     if mesh is None:
         mesh = distributed.make_node_mesh()
-    st = dispatch.state()
-    if not st.caps:          # never set up: the dispatcher's own choice
-        api.initialize()
+    st = dispatch.ready()
     rows = on_device(mesh_mod.local_rows(symbols, mesh), mesh.device)
     out = api._decode_tensor(rows, framebits, dispatch.VARIANTS[st.variant],
                              block=block)

@@ -44,7 +44,7 @@ import torch
 from .. import constants as C
 from ..ops import acs, acs_cuda
 from ..ops import traceback as tb
-from ..runtime.placement import default_device, want_kernels
+from ..runtime.placement import strict_device, want_kernels
 from .streaming import _anchored_chainback
 
 EMIT_QUANTUM = 24   # emit boundaries land on multiples of 24 bits
@@ -118,9 +118,10 @@ class StreamSession:
     remaining byte. The concatenated output equals a one-shot decode of
     the whole stream within the overlap's reliability (module docstring).
 
-    The session decodes on ``device`` (the card where there is one);
-    ``use_kernels=None`` takes kernels A and B there and the plain form on
-    the CPU.
+    The session decodes on ``device``: the card unless the caller names
+    another (``"cpu"``), and ``placement.NoDeviceError`` where there is
+    none. ``use_kernels=None`` takes kernels A and B on the card and the
+    plain form on the CPU.
     """
 
     def __init__(self, batch: int, overlap: int = 120,
@@ -129,7 +130,7 @@ class StreamSession:
             raise ValueError(f"overlap {overlap} < {C.TAIL_BITS}")
         self.B = batch
         self.overlap = int(overlap)
-        self.device = default_device(device)
+        self.device = strict_device(device)
         self.use_kernels = want_kernels(use_kernels, self.device)
         self.emitted_bits = 0                 # multiple of EMIT_QUANTUM
         self._metrics = None                  # on the device, or None

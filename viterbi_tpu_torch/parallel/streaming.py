@@ -45,7 +45,7 @@ import torch
 from .. import constants as C
 from ..ops import acs, acs_cuda
 from ..ops import traceback as tb
-from ..runtime.placement import default_device, on_device, want_kernels
+from ..runtime.placement import on_device, strict_device, want_kernels
 from . import distributed
 from . import mesh as mesh_mod
 
@@ -232,8 +232,8 @@ def make_local_stream_decoder(stream_bits: int, n_blocks: int,
     ``overlap=None`` takes ``DEFAULT_OVERLAP``, clamped or aligned to fit
     small blocks; an explicit overlap that cannot fit raises. The layout
     is planned here, for the form that ``use_kernels`` gives on
-    ``device`` (the card where there is one), so a block too small for it
-    raises at once.
+    ``device`` (the card unless the caller names another; a raise without
+    one), so a block too small for it raises at once.
 
     Returns ``decode(symbols, tail_syms)``: ``symbols`` int[B,
     4*stream_bits], ``tail_syms`` int[B, 24] (tensors or host arrays,
@@ -250,7 +250,7 @@ def make_local_stream_decoder(stream_bits: int, n_blocks: int,
             plans[kernels] = _plan_block_layout(blk, overlap, warmup, kernels)
         return plans[kernels]
 
-    plan(want_kernels(use_kernels, default_device(device)))
+    plan(want_kernels(use_kernels, strict_device(device)))
 
     def decode(symbols, tail_syms):
         syms = on_device(symbols, device)

@@ -17,7 +17,9 @@ the fault away and latching the dispatcher to a safe no-op decoder until
     or host exception into the latch-and-degrade behavior,
   * ``initialize()`` clears the latch (runtime.dispatch.initialize).
 
-``guarded`` is the decorator the hot API entry points go through.
+``guarded`` is the decorator the hot API entry points go through. A
+missing card is not a decoder fault: ``placement.NoDeviceError`` passes
+through the guard, and latches nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import threading
 import traceback as _tb
 
 from . import dispatch
+from .placement import NoDeviceError
 
 SAFE_MODE_RETVAL = 1   # decon_savemode's return value (viterbi_helpers.asm)
 
@@ -52,7 +55,8 @@ def guarded(safe_retval):
 
     While safe mode is latched, calls return ``safe_retval`` immediately
     (viterbi-benchmark.cpp:456-464). ``ValidationError`` returns the
-    error code without latching; everything else latches.
+    error code without latching; ``NoDeviceError`` raises; everything
+    else latches.
     """
     def deco(fn):
         @functools.wraps(fn)
@@ -63,6 +67,8 @@ def guarded(safe_retval):
                 return fn(*args, **kwargs)
             except ValidationError:   # benign typo: error, no latch
                 return safe_retval
+            except NoDeviceError:     # no card: the caller's to handle
+                raise
             except Exception as exc:  # kernel fault: latch, survive
                 record_fault(exc)
                 return safe_retval

@@ -1,14 +1,16 @@
 """Where an entry point's input goes, and whether it takes the kernels.
 
-Every decode entry point beyond ``api`` (the DAB chains, tail-biting,
-streaming, sessions) takes a tensor or a host array. A tensor stays on
-its device unless the caller names another; a host array goes to the
-card where there is one. ``use_kernels=None`` then takes the
-hand-written kernels on a CUDA tensor and the plain torch path on a CPU
-tensor; ``use_kernels=True`` on the CPU is refused, since there the
-kernels exist only as their plain versions. The entry points of
-``entry.py``, the tools and the ranks of ``parallel.distributed`` take
-``strict_device`` instead: the card, or the CPU only when asked for.
+One rule for every entry point of the port (the API's dispatcher, the
+DAB chains, tail-biting, streaming, sessions, the pipelined feed, the
+tools and the ranks of ``parallel.distributed``): a call runs on the
+card unless the caller asks for the CPU, and raises ``NoDeviceError``
+where it would need a card and there is none. A tensor stays on its
+device unless the caller names another, so a CPU tensor is the caller's
+request for the CPU; a host array goes to ``strict_device(device)``.
+``use_kernels=None`` then takes the hand-written kernels on a CUDA
+tensor and the plain torch path on a CPU tensor; ``use_kernels=True`` on
+the CPU is refused, since there the kernels exist only as their plain
+versions.
 """
 
 from __future__ import annotations
@@ -17,24 +19,20 @@ import numpy as np
 import torch
 
 
-def default_device(device=None) -> torch.device:
-    """``device``, or the card where there is one, else the CPU."""
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+class NoDeviceError(RuntimeError):
+    """A card was asked for, by name or by default, and there is none."""
 
 
 def strict_device(device=None) -> torch.device:
-    """The device of a call that must not move to the CPU by itself: the
-    current card, unless the caller names another (``"cpu"``). Raises
-    where a card is asked for, by name or by default, and there is
-    none."""
+    """The device of a call: the current card, unless the caller names
+    another (``"cpu"``). Raises ``NoDeviceError`` where a card is asked
+    for, by name or by default, and there is none."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"no CUDA device (no card for {dev}): pass "
-                               "device='cpu' (--device cpu) to run on the "
-                               "CPU")
+            raise NoDeviceError(f"no CUDA device (no card for {dev}): pass "
+                                "device='cpu' (--device cpu) to run on the "
+                                "CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -42,12 +40,13 @@ def strict_device(device=None) -> torch.device:
 
 def on_device(symbols, device=None) -> torch.Tensor:
     """Symbols as an int32 tensor on the decode device: a tensor stays
-    where it is unless ``device`` says otherwise; a host array goes to
-    ``default_device(device)``."""
+    where it is unless ``device`` names another; a host array goes to
+    ``strict_device(device)``."""
     if isinstance(symbols, torch.Tensor):
-        return symbols.to(device=device or symbols.device, dtype=torch.int32)
+        dev = symbols.device if device is None else strict_device(device)
+        return symbols.to(device=dev, dtype=torch.int32)
     return torch.from_numpy(np.ascontiguousarray(symbols, dtype=np.int32)) \
-        .to(default_device(device))
+        .to(strict_device(device))
 
 
 def want_kernels(use_kernels: bool | None, device: torch.device) -> bool:

@@ -50,7 +50,7 @@ def run(iters: int = 200, device=None, bitrates=BITRATES, batches=BATCHES,
     from ..runtime import dispatch
     dev = strict_device(device)
     viterbi_tpu_torch.initialize()
-    st = dispatch.state()
+    st = dispatch.ready()
     if st.device.type != dev.type:
         raise RuntimeError(f"the API decodes on {st.device}, not on {dev}")
     rung = dispatch.VARIANTS[st.variant]
@@ -111,6 +111,8 @@ def main(argv=None) -> int:
     ap = _record.parser(__doc__)
     ap.add_argument("--iters", type=int, default=200)
     args = ap.parse_args(argv)
+    from .. import api
+    api.initialize(device=args.device)   # this process's API device
     return _record.finish(run(args.iters, args.device), args.out, "LATENCY")
 
 

@@ -41,8 +41,9 @@ COMMITTED = _record.ROOT / "tests" / "data" / "corpus"
 
 def run(outdir, device=None) -> int:
     """Write the 13 captures and their expectations into ``outdir``;
-    returns how many. The API decodes on ``device``'s kind: the card,
-    unless ``"cpu"``."""
+    returns how many. The API must decode on ``device``'s kind (the card,
+    unless ``"cpu"``): a caller on the CPU has called
+    ``initialize(device="cpu")``, as ``main`` does for ``--device cpu``."""
     import viterbi_tpu_torch as api
     from ..runtime import calllog, dispatch
     dev = strict_device(device)
@@ -50,8 +51,9 @@ def run(outdir, device=None) -> int:
     if out.resolve() == COMMITTED.resolve():
         raise ValueError(f"{out} is the committed corpus; write elsewhere")
     api.initialize()
-    if dispatch.state().device.type != dev.type:
-        raise RuntimeError(f"the API decodes on {dispatch.state().device}, "
+    api_dev = dispatch.ready().device
+    if api_dev.type != dev.type:
+        raise RuntimeError(f"the API decodes on {api_dev}, "
                            f"not on {dev}")
     out.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="vit_corpus_")
@@ -138,6 +140,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cpu to decode on the CPU (default: the card)")
     args = ap.parse_args(argv)
+    from .. import api
+    api.initialize(device=args.device)   # this process's API device
     n = run(args.outdir, args.device)
     total = sum(p.stat().st_size for p in Path(args.outdir).iterdir())
     print(f"corpus: {n} captures -> {args.outdir} ({total / 1024:.0f} KiB)")

@@ -306,7 +306,7 @@ def _ensemble_rank(rank, world_size, store, device, sf_syms):
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    api.initialize()
+    api.initialize(device=dev)
     m = mesh.make_mesh(world_size, 1, rank=rank, world_size=world_size,
                        store=store, device=dev)
     _record.zero_launches()
@@ -367,7 +367,7 @@ def run(quick: bool = False, device=None, bitrates=BITRATES,
     from ..runtime import dispatch
     dev = strict_device(device)
     api.initialize()
-    api_dev = dispatch.state().device
+    api_dev = dispatch.ready().device
     if api_dev.type != dev.type:
         raise RuntimeError(f"the API decodes on {api_dev}, not on {dev}")
     doc = {"device": _record.stamp(dev), "quick": quick, "sections": {}}
@@ -413,6 +413,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="fewer frames a cell (a smoke run)")
     args = ap.parse_args(argv)
+    api.initialize(device=args.device)   # this process's API device
     return _record.finish(run(args.quick, args.device), args.out, "PARITY")
 
 

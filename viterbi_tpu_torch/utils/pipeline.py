@@ -24,7 +24,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from ..runtime.placement import default_device
+from ..runtime.placement import strict_device
 
 
 def _to_host(out: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event]:
@@ -43,14 +43,15 @@ def decode_pipelined(batches: Iterable[np.ndarray], decode_fn: Callable,
     flight.
 
     ``batches``: host arrays (any shape and dtype ``decode_fn`` takes).
-    ``decode_fn``: a function of one tensor on ``device`` (the card where
-    there is one) that returns one tensor. Yields each result as a numpy
+    ``decode_fn``: a function of one tensor on ``device`` (the card unless
+    the caller names another; ``placement.NoDeviceError`` without one)
+    that returns one tensor. Yields each result as a numpy
     array, in the order of the batches. On the CPU the same order runs
     with no streams and no staging.
     """
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    dev = default_device(device)
+    dev = strict_device(device)
     it = iter(batches)
     if dev.type != "cuda":
         inflight: collections.deque = collections.deque()
