@@ -320,13 +320,20 @@ def test_calllog_and_symbol_capture(tmp_path):
 
 
 def test_calllog_profiler_spans(tmp_path):
-    from viterbi_tpu_torch.runtime import calllog
-    prof_dir = tmp_path / "prof"
-    calllog.configure(True, False, str(tmp_path / "p"),
-                      profile_dir=str(prof_dir))
-    try:
+    """The caller's own profiler sees an export call as the span
+    ``viterbi_tpu_torch.api.deconvolve`` with its ``ingest`` child."""
+    import json
+
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         assert viterbi_tpu_torch.deconvolve(48, _syms(48, n=1)[0]) == 0
-    finally:
-        calllog.configure(False)
-    trace = (prof_dir / "trace.json").read_text()
-    assert "viterbi_tpu_torch.deco" in trace
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    spans = {e["name"]: e for e in
+             json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+             if e.get("ph") == "X"
+             and e.get("name", "").startswith("viterbi_tpu_torch.")}
+    call = spans["viterbi_tpu_torch.api.deconvolve"]
+    ingest = spans["viterbi_tpu_torch.ingest"]
+    assert call["ts"] <= ingest["ts"]
+    assert ingest["ts"] + ingest["dur"] <= call["ts"] + call["dur"]

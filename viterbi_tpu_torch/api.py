@@ -20,8 +20,10 @@ the card, and raises ``placement.NoDeviceError`` where there is none
 unless ``initialize(device="cpu")`` asked for the CPU. That raise is not
 a decoder fault: it returns no error code and latches nothing.
 
-Symbols arrive as host arrays, go to the device once per call, and the
-decoded bytes come back as numpy uint8.
+Symbols arrive as host arrays, go to the device once per call
+(``placement.ingest``), and the decoded bytes come back as numpy uint8.
+Each export call is a span of ``runtime.calllog`` (``api.<export>``),
+with its stages ``ingest``, ``viterbi`` or ``rs``, and ``readback``.
 """
 
 from __future__ import annotations
@@ -33,10 +35,10 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .ops import acs, acs_cuda
+from .ops import acs, acs_cuda, counts
 from .ops import rs as rs_ops
 from .ops import traceback as tb
-from .runtime import calllog, dispatch, faults
+from .runtime import calllog, dispatch, faults, placement
 
 _SAFE = faults.SAFE_MODE_RETVAL
 
@@ -208,9 +210,23 @@ def _decode_batch(symbols: np.ndarray, framebits: int,
         symbols = np.ascontiguousarray(symbols, dtype=np.int32) \
             .view(np.uint8).reshape(symbols.shape[0], -1)
         packed = False
-    syms = torch.from_numpy(np.ascontiguousarray(symbols, dtype=np.int32)) \
-        .to(st.device)
-    return _decode_tensor(syms, framebits, variant, packed).cpu().numpy()
+    syms = placement.ingest(symbols, st.device)
+    with calllog.span("viterbi") as sp:
+        n0 = counts.total() if sp else 0
+        out = _decode_tensor(syms, framebits, variant, packed)
+        if sp:
+            sp.count(launches=counts.total() - n0)
+    return _readback(out)
+
+
+def _readback(out: torch.Tensor) -> np.ndarray:
+    """A result on the decode device as a host array, in the span
+    ``readback``: the wait for the card and the copy back, ``d2h_bytes``
+    (on the CPU the bytes handed back, no copy)."""
+    with calllog.span("readback") as sp:
+        if sp:
+            sp.count(d2h_bytes=out.numel() * out.element_size())
+        return out.cpu().numpy()
 
 
 @_ready
@@ -236,9 +252,9 @@ def deconvolve(framebits: int, symbols, input_length: int = 0,
         raise faults.ValidationError("symbol buffer too short")
     if output is not None and _buf_len(output) < -(-framebits // 8):
         raise faults.ValidationError("output buffer too short")
-    with calllog.record("deco", framebits=framebits) as rec:
+    with calllog.span("api.deconvolve") as call:
         syms = syms[: C.RATE * (framebits + C.TAIL_BITS)]
-        rec.capture_symbols(syms, source=symbols)
+        call.record("deco", syms, source=symbols, framebits=framebits)
         out = _decode_batch(syms[None, :], framebits)[0]
     if output is not None:
         _buf_write(output, slice(0, out.size), out)
@@ -270,10 +286,11 @@ def deconvolve_batch(framebits: int, symbols_batch,
              else C.RATE * (framebits + C.TAIL_BITS))
     if syms.ndim != 2 or syms.shape[1] < width:
         raise faults.ValidationError("bad symbol batch shape")
-    with calllog.record("deco", framebits=framebits, batch=syms.shape[0],
-                        packed=int(packed)) as rec:
+    with calllog.span("api.deconvolve_batch") as call:
         syms = syms[:, :width]
-        rec.capture_symbols(syms, source=symbols_batch)
+        call.record("deco", syms, source=symbols_batch,
+                    framebits=framebits, batch=syms.shape[0],
+                    packed=int(packed))
         out = _decode_batch(syms, framebits, packed=packed)
     return 0, out
 
@@ -344,17 +361,20 @@ def rs_check_superframe(p, start_ix: int = 0, rs_dims: int = 0,
     if out_vector is not None and \
             _buf_len(out_vector) < rs_dims * C.RS_KK:
         raise faults.ValidationError("output buffer too short")
-    with calllog.record("rscs", rs_dims=rs_dims) as rec:
+    with calllog.span("api.rs_check_superframe") as call:
         buf = buf[: rs_dims * C.RS_N]
-        rec.capture_symbols(buf, source=p)
-        sf = torch.from_numpy(np.ascontiguousarray(buf, dtype=np.uint8)) \
-            .to(dispatch.state().device)
+        call.record("rscs", buf, source=p, rs_dims=rs_dims)
+        sf = placement.ingest(buf, dispatch.state().device, torch.uint8)
         # one launch into one buffer, one copy back
         back, views = rs_ops.superframe_buffer(rs_dims, sf.device)
-        rs_ops.rs_check_superframes(sf[None], rs_dims, zero_after_fail=True,
-                                    out=views)
+        with calllog.span("rs") as sp:
+            n0 = counts.total() if sp else 0
+            rs_ops.rs_check_superframes(sf[None], rs_dims,
+                                        zero_after_fail=True, out=views)
+            if sp:
+                sp.count(launches=counts.total() - n0)
         errors, out, n_ok = rs_ops.unpack_superframe_buffer(
-            back.cpu().numpy(), rs_dims)
+            _readback(back), rs_dims)
     if out_vector is not None:
         if errors != -1:
             _buf_write(out_vector, slice(0, out.size), out)

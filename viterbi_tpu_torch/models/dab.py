@@ -38,9 +38,10 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..ops import acs, acs_cuda, rs as rs_ops, traceback
+from ..ops import acs, acs_cuda, counts, rs as rs_ops, traceback
 from ..parallel import distributed
 from ..parallel import mesh as mesh_mod
+from ..runtime import calllog
 from ..runtime.placement import on_device, want_kernels
 from . import puncture as P
 
@@ -125,17 +126,29 @@ def decode_audio_superframes(symbols, bitrate_kbps: int,
     Returns (audio uint8[B, rs_dims*110], rs_errors int32[B]) on the
     symbols' device: corrected audio superframe bytes and per-superframe
     corrected-byte counts (-1 = uncorrectable, matching
-    RScheckSuperframe).
+    RScheckSuperframe). The call is the span ``chain`` of
+    ``runtime.calllog``, with its stages ``ingest``, ``viterbi`` and
+    ``rs``; the caller reads the results back.
     """
-    cfg = SubchannelConfig(bitrate_kbps)
-    syms = on_device(symbols, device)
-    B = syms.shape[0]
-    flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
-    kernels = want_kernels(use_kernels, syms.device)
-    frame_bytes = decode_frames(flat, cfg.framebits, kernels)
-    sf = bytes_to_superframes(
-        frame_bytes.reshape(B, SUPERFRAME_FRAMES, cfg.frame_bytes), cfg)
-    return rs_superframes(sf, cfg.rs_dims, kernels)
+    with calllog.span("chain"):
+        cfg = SubchannelConfig(bitrate_kbps)
+        syms = on_device(symbols, device)
+        B = syms.shape[0]
+        flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
+        kernels = want_kernels(use_kernels, syms.device)
+        with calllog.span("viterbi") as sp:
+            n0 = counts.total() if sp else 0
+            frame_bytes = decode_frames(flat, cfg.framebits, kernels)
+            if sp:
+                sp.count(launches=counts.total() - n0)
+        sf = bytes_to_superframes(
+            frame_bytes.reshape(B, SUPERFRAME_FRAMES, cfg.frame_bytes), cfg)
+        with calllog.span("rs") as sp:
+            n0 = counts.total() if sp else 0
+            out = rs_superframes(sf, cfg.rs_dims, kernels)
+            if sp:
+                sp.count(launches=counts.total() - n0)
+    return out
 
 
 def decode_ensemble_sharded(symbols, bitrate_kbps: int,

@@ -29,6 +29,12 @@ def launches() -> dict:
     return {k: getattr(m, n).launches for k, (m, n) in KERNELS.items()}
 
 
+def total() -> int:
+    """Launches of kernels A-D and I, all entries together: read before
+    and after a stage, the stage's launches."""
+    return sum([getattr(m, n).launches for m, n in KERNELS.values()])
+
+
 def missing(counts: dict, names) -> list:
     """The kernels of ``names`` that ``counts`` shows never launched."""
     return [k for k in names if not counts.get(k)]

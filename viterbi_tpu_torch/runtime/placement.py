@@ -11,12 +11,20 @@ request for the CPU; a host array goes to ``strict_device(device)``.
 tensor and the plain torch path on a CPU tensor; ``use_kernels=True`` on
 the CPU is refused, since there the kernels exist only as their plain
 versions.
+
+``ingest`` is the one place where a call's input goes to the decode
+device (``on_device``, and the API's exports through it); it carries the
+``ingest`` span of ``runtime.calllog`` and its counters.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import calllog
+
+_NUMPY = {torch.int32: np.int32, torch.uint8: np.uint8}
 
 
 class NoDeviceError(RuntimeError):
@@ -42,11 +50,24 @@ def on_device(symbols, device=None) -> torch.Tensor:
     """Symbols as an int32 tensor on the decode device: a tensor stays
     where it is unless ``device`` names another; a host array goes to
     ``strict_device(device)``."""
-    if isinstance(symbols, torch.Tensor):
-        dev = symbols.device if device is None else strict_device(device)
-        return symbols.to(device=dev, dtype=torch.int32)
-    return torch.from_numpy(np.ascontiguousarray(symbols, dtype=np.int32)) \
-        .to(strict_device(device))
+    if isinstance(symbols, torch.Tensor) and device is None:
+        return ingest(symbols, symbols.device)
+    return ingest(symbols, strict_device(device))
+
+
+def ingest(data, device: torch.device, dtype=torch.int32) -> torch.Tensor:
+    """``data`` (a host array or a tensor) as a ``dtype`` tensor on
+    ``device``, in the span ``ingest``. Its counter ``h2d_bytes``: the
+    bytes handed over from host memory (0 from a card; on the CPU the
+    bytes the decode then reads in place)."""
+    with calllog.span("ingest") as sp:
+        if not isinstance(data, torch.Tensor):
+            data = torch.from_numpy(np.ascontiguousarray(data,
+                                                         dtype=_NUMPY[dtype]))
+        if sp:
+            sp.count(h2d_bytes=data.numel() * dtype.itemsize
+                     if data.device.type == "cpu" else 0)
+        return data.to(device, dtype)
 
 
 def want_kernels(use_kernels: bool | None, device: torch.device) -> bool:
