@@ -142,7 +142,7 @@ def test_counters_match_the_bytes_and_the_launch_counts(entry, monkeypatch):
     """With the kernels' wrappers counted as on a card (each runs its
     plain version here) and the fused rung selected, the stages' launches
     add up to ``ops.counts`` over the call; ``h2d_bytes`` is the input
-    handed over."""
+    handed over, through the direct path (no chunk staged)."""
     for module, name in counts.KERNELS.values():
         monkeypatch.setattr(module, name, _counting(getattr(module, name)))
     monkeypatch.setattr(dispatch.state(), "variant",
@@ -153,7 +153,8 @@ def test_counters_match_the_bytes_and_the_launch_counts(entry, monkeypatch):
         nbytes = _call(entry)
     launched = counts.total() - before
     _, stages = _one_tree(calllog.spans(), entry)
-    assert stages["ingest"].counters == {"h2d_bytes": nbytes}
+    assert stages["ingest"].counters == {"h2d_bytes": nbytes,
+                                         "staged_chunks": 0}
     assert sum(r.counters.get("launches", 0) for r in stages.values()) \
         == launched
     if entry.startswith("deconvolve"):
@@ -294,7 +295,8 @@ def test_on_the_card_the_stages_count_the_kernels_and_the_copies():
     assert len(by_request) == len(TREES)
     for entry, recs in zip(TREES, by_request.values()):
         _, stages = _one_tree(recs, entry)
-        assert stages["ingest"].counters == {"h2d_bytes": nbytes[entry]}
+        assert stages["ingest"].counters == {"h2d_bytes": nbytes[entry],
+                                             "staged_chunks": 0}
         if "viterbi" in stages:
             assert stages["viterbi"].counters == {"launches": 2}
         if "rs" in stages:

@@ -164,9 +164,9 @@ def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
                    block: int | None = None) -> torch.Tensor:
     """Decode symbols that already lie on the decode device through the
     named rung: [B, 4*(framebits+6)] symbols, or frame-major packed words
-    int32[B, framebits+6] (``packed=True``, framebits % 8 == 0: every
-    kernel and its plain version reads them in place). ``block`` is the
-    blocked traceback's block (default: the config key). Returns
+    int32[B, framebits+6] (``packed`` True or ``"bt"``, framebits % 8 ==
+    0: every kernel and its plain version reads them in place). ``block``
+    is the blocked traceback's block (default: the config key). Returns
     uint8[B, ceil(framebits/8)] on that device."""
     layout = "bt" if packed else False
     if framebits % 8:
@@ -200,8 +200,10 @@ def _decode_batch(symbols: np.ndarray, framebits: int,
                   packed: bool = False) -> np.ndarray:
     """Dispatch a batch through the selected variant: [B, 4*(framebits+6)]
     symbols, or packed int32[B, framebits+6] words, which go to the device
-    as they are wherever framebits % 8 == 0. Returns
-    uint8[B, ceil(framebits/8)] packed bytes."""
+    as they are wherever framebits % 8 == 0. Unpacked symbols on the byte
+    grid go through ``placement.ingest_words``, which narrows a large
+    batch to packed words on its way. Returns uint8[B, ceil(framebits/8)]
+    packed bytes."""
     st = dispatch.state()
     variant = dispatch.VARIANTS[st.variant]
     if packed and framebits % 8:
@@ -210,7 +212,10 @@ def _decode_batch(symbols: np.ndarray, framebits: int,
         symbols = np.ascontiguousarray(symbols, dtype=np.int32) \
             .view(np.uint8).reshape(symbols.shape[0], -1)
         packed = False
-    syms = placement.ingest(symbols, st.device)
+    if packed or framebits % 8:
+        syms = placement.ingest(symbols, st.device)
+    else:
+        syms, packed = placement.ingest_words(symbols, st.device)
     with calllog.span("viterbi") as sp:
         n0 = counts.total() if sp else 0
         out = _decode_tensor(syms, framebits, variant, packed)

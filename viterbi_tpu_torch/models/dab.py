@@ -20,7 +20,9 @@ interleaved RS codewords (rschecksf.cpp:58-62).
 
 Symbols go to the device once and every result is a tensor on that
 device. A host array goes to the card where there is one, unless the
-caller names a device. ``use_kernels=None`` takes the Hopper kernels
+caller names a device; the superframe chain's goes through
+``placement.ingest_words``, which narrows a large batch to packed words
+on its way. ``use_kernels=None`` takes the Hopper kernels
 (``acs_cuda.decode``: the fused ACS and the checkpoint walk; in the
 superframe chain also kernel I, the RS stage in one launch) for symbols
 on a CUDA device and the plain path for symbols on the CPU;
@@ -42,7 +44,7 @@ from ..ops import acs, acs_cuda, counts, rs as rs_ops, traceback
 from ..parallel import distributed
 from ..parallel import mesh as mesh_mod
 from ..runtime import calllog
-from ..runtime.placement import on_device, want_kernels
+from ..runtime.placement import on_device, on_device_words, want_kernels
 from . import puncture as P
 
 SUPERFRAME_FRAMES = 5  # logical frames per DAB+ audio superframe
@@ -84,14 +86,18 @@ def bytes_to_superframes(frame_bytes: torch.Tensor, cfg: SubchannelConfig):
 
 
 def decode_frames(flat: torch.Tensor, framebits: int, use_kernels: bool,
-                  scan: bool = False) -> torch.Tensor:
-    """The chains' Viterbi stage: [N, 4*(framebits+6)] int32 symbols ->
+                  scan: bool = False, packed=False) -> torch.Tensor:
+    """The chains' Viterbi stage: [N, 4*(framebits+6)] int32 symbols, or
+    frame-major packed words int32[N, framebits+6] (``packed="bt"``) ->
     uint8[N, framebits//8]. With kernels, kernel A then kernel B; without,
     ``acs.forward`` and the blocked traceback (``scan``: the serial one,
     as the JAX package decodes punctured frames)."""
+    nsteps = framebits + C.TAIL_BITS
     if use_kernels:
-        return acs_cuda.decode(flat, framebits)
-    decisions, _ = acs.forward(flat, framebits + C.TAIL_BITS)
+        return acs_cuda.decode(flat, framebits, packed=packed)
+    if packed:
+        flat = acs_cuda.unpack_symbols(flat, nsteps, packed)
+    decisions, _ = acs.forward(flat, nsteps)
     if scan:
         return traceback.chainback_scan(decisions, framebits)
     block = next(b for b in (64, 48, 32, 24, 16, 8, 4, 2, 1)
@@ -132,13 +138,14 @@ def decode_audio_superframes(symbols, bitrate_kbps: int,
     """
     with calllog.span("chain"):
         cfg = SubchannelConfig(bitrate_kbps)
-        syms = on_device(symbols, device)
+        syms, layout = on_device_words(symbols, device)
         B = syms.shape[0]
         flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
         kernels = want_kernels(use_kernels, syms.device)
         with calllog.span("viterbi") as sp:
             n0 = counts.total() if sp else 0
-            frame_bytes = decode_frames(flat, cfg.framebits, kernels)
+            frame_bytes = decode_frames(flat, cfg.framebits, kernels,
+                                        packed=layout)
             if sp:
                 sp.count(launches=counts.total() - n0)
         sf = bytes_to_superframes(

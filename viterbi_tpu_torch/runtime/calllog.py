@@ -21,8 +21,8 @@ On, a span
   ``name``, the ``request`` id every span of one call shares (``seq``),
   its ``parent``'s name, its ``thread``, ``time.perf_counter_ns()`` at
   its start and end (``t0_ns``, ``t1_ns``), and the ``counters`` set on
-  it by ``count()`` (``h2d_bytes``, ``d2h_bytes``, the kernels'
-  ``launches``).
+  it by ``count()`` (``h2d_bytes``, ``staged_chunks``, ``d2h_bytes``,
+  the kernels' ``launches``).
 
 **Call logging.** An export's root span is the logged call:
 ``Span.record(kind, symbols, **shape)`` gives it its kind and shape, and
@@ -65,7 +65,7 @@ _ADDR_CAP = 65536
 SPAN_CAP = 1 << 16
 PREFIX = "viterbi_tpu_torch."
 #: the counters summed by stage in the log and its summary
-_STAGE_COUNTERS = ("h2d_bytes", "d2h_bytes", "launches")
+_STAGE_COUNTERS = ("h2d_bytes", "staged_chunks", "d2h_bytes", "launches")
 
 
 _spans: collections.deque = collections.deque(maxlen=SPAN_CAP)
