@@ -73,7 +73,13 @@ Phases (each raises on failure, so the exit code is non-zero):
      2-B, and decode_profile_frames with a four-segment row, against
      golden on a subset and, on the whole batch, against the plain path
      on the card; kernels A and B against their plain versions on the
-     depunctured symbols;
+     depunctured symbols; then the superframe chain fed punctured
+     symbols (decode_audio_superframes with protection) once per EEP-A
+     level at 128 kbit/s, a staged batch through kernels J, A, B and I
+     (one launch each), against the plain-only call on the card and the
+     plain reference (reference/punctured.py) on two superframes;
+     kernel J against its plain version on the path's bytes, timed at
+     EEP 3-A;
  11. replay: the committed corpus replays bit-exactly;
  12. probes: kernels E to H against their plain versions, bit for bit,
      at the probes' own shapes (F also at lane counts around one thread's
@@ -140,7 +146,7 @@ Phases (each raises on failure, so the exit code is non-zero):
      card.
 Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
-before it lists the ten kernels as JSON, each with its launches on its
+before it lists the eleven kernels as JSON, each with its launches on its
 path (A to D and I also by path, phases 8-18 included; I by both its
 entries), its time beside its plain version's, and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its integer operations (the
@@ -168,6 +174,7 @@ ROOT = Path(__file__).resolve().parent
 B_MAIN = 16384          # frames per main-path call
 FB_MAIN = 3072          # framebits of the main-path call (128 kbit/s)
 B_CHECK = 1024          # frames per kernel-vs-plain check
+EEP_SF = 512            # superframes a punctured chain call (phase 10)
 EBN0_DB = 3.0
 # the harness gate's exact counts on its seeded frames (HARNESS_TPU.json)
 GATE = {"frames": 5000, "bit_errors": 2637, "bad_frames": 595}
@@ -254,6 +261,7 @@ OPS_PER_ROUND_H = 2     # int: two fused add-mins a stream (float: 4 ops)
 OPS_PER_CKPT_B = 6      # address (3), shift, mask, anchor compare
 OPS_PER_BYTE_B = 5      # checkpoint of the byte (2), shift, mask, place
 OPS_PER_BIT_D = 9       # word select, 2 shifts + 2 masks, 2 to place, 2 state
+OPS_PER_STEP_J = 8      # a step's word: 4 selects (kept or 127), 4 shift-ors
 # Kernel I: the operations the reference's scalar decoder
 # (golden.rs_decode_codeword) needs on this run's codewords, each a step
 # through the tables as csrc/rs_decode.cu takes it (a product of two logs
@@ -968,8 +976,10 @@ def rs_forms(tag) -> dict:
             "rs_synd_table": per_call["kernel_table_synd"].pop()}
 
 
-def eep_path(dev, tag, check) -> dict:
-    """Phase 10: the punctured-frame decoders on the card."""
+def eep_path(dev, tag, check):
+    """Phase 10: the punctured-frame decoders and the superframe chain fed
+    punctured symbols on the card; returns the launches on the path and
+    kernel J's times and bytes at EEP 3-A (``punctured_chain``)."""
     import torch
     from viterbi_tpu_torch import golden
     from viterbi_tpu_torch.harness import channel
@@ -977,8 +987,9 @@ def eep_path(dev, tag, check) -> dict:
     from viterbi_tpu_torch.models import puncture as P
     from viterbi_tpu_torch.ops import acs_cuda
     from viterbi_tpu_torch.ops import traceback as tb
+    from viterbi_tpu_torch.ops import depuncture as dp
     fb = 24 * SF_KBPS
-    launches = {"acs_regs": 0, "tb_walk": 0}
+    launches = {"acs_regs": 0, "tb_walk": 0, "depuncture": 0}
     row = ((24, 24), (40, 16), (20, 9), (12, 5))     # 96 blocks = 128 kbit/s
     profiles = {"EEP 3-A": P.eep_profile(SF_KBPS, 3, "A"),
                 "EEP 2-B": P.eep_profile(SF_KBPS, 2, "B"),
@@ -1000,12 +1011,14 @@ def eep_path(dev, tag, check) -> dict:
 
         acs_cuda.forward_regs.launches = 0
         tb.tb_walk.launches = 0
+        dp.depuncture.launches = 0
         t0 = time.perf_counter()
         got = decode(rec)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches["acs_regs"] += acs_cuda.forward_regs.launches
         launches["tb_walk"] += tb.tb_walk.launches
+        launches["depuncture"] += dp.depuncture.launches
         assert got.is_cuda and got.shape == (B_CHECK, fb // 8)
         out = got.cpu().numpy()
         want = golden.deconvolve_many(fb, P.depuncture(rec[:4], mask))
@@ -1021,11 +1034,99 @@ def eep_path(dev, tag, check) -> dict:
               f"{prof.transmitted_bits} of {mask.size} symbols sent, "
               f"{channel.ber_fer(out, bits)[2]} bit errors at 6 dB, equal "
               f"to golden on 4 frames and to the plain-only call on all; "
-              f"kernels A and B bit-identical to plain on its symbols "
+              f"kernels J, A and B once; A and B bit-identical to plain on "
+              f"its symbols "
               f"({ms:.1f} ms end to end)")
     for name, count in launches.items():
         assert count == len(profiles), f"EEP path: {name} x {count}"
-    return launches
+    chain = punctured_chain(dev, tag, check)
+    for name, count in chain.pop("launches").items():
+        launches[name] = launches.get(name, 0) + count
+    return launches, chain
+
+
+def punctured_chain(dev, tag, check) -> dict:
+    """Phase 10, second part: decode_audio_superframes with ``protection``
+    once per EEP-A level at SF_KBPS on EEP_SF staged superframes (two of
+    them uncorrectable): one launch each of kernels J, A, B and I, equal
+    to the plain-only call on the card and to the plain reference on two
+    superframes; kernel J against its plain version on the path's bytes,
+    timed at EEP 3-A."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.harness import channel
+    from viterbi_tpu_torch.models import dab
+    from viterbi_tpu_torch.models import puncture as P
+    from viterbi_tpu_torch.ops import counts
+    from viterbi_tpu_torch.ops import depuncture as dp
+    from viterbi_tpu_torch.probes import _common
+    from viterbi_tpu_torch.reference import punctured as R
+    kernels = ("depuncture", "acs_regs", "tb_walk", "rs_superframes")
+    launches = dict.fromkeys(kernels, 0)
+    timed = {}
+    for level in (1, 2, 3, 4):
+        protection = ("A", level)
+        prof = dab.protection_profile(protection, SF_KBPS)
+        kept = prof.transmitted_bits
+        # Es/N0 3 dB on every symbol (the mother code's Eb/N0 9 dB)
+        _, syms = channel.make_superframes(EEP_SF, SF_KBPS, seed=level,
+                                           ebn0_db=9.0, uncorrectable=2)
+        rec = P.puncture(syms, prof.mask()).astype(np.int32)
+        del syms
+        counts.zero_launches()
+        t0 = time.perf_counter()
+        audio, errors = dab.decode_audio_superframes(rec, SF_KBPS,
+                                                     protection=protection)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = counts.launches()
+        assert all(n[k] == 1 for k in kernels), f"EEP {level}-A chain: {n}"
+        for k in kernels:
+            launches[k] += n[k]
+        drec = torch.from_numpy(rec).to(dev)
+        p_audio, p_errors = dab.decode_audio_superframes(
+            drec, SF_KBPS, use_kernels=False, protection=protection)
+        assert torch.equal(audio, p_audio) and \
+            torch.equal(errors, p_errors), \
+            f"EEP {level}-A chain != the plain-only call"
+        # superframe 1 uncorrectable, superframe 2 not
+        r_audio, r_errors = R.decode_superframes(rec[1:3], SF_KBPS,
+                                                 protection)
+        assert torch.equal(audio[1:3].cpu(), r_audio) and \
+            torch.equal(errors[1:3].cpu(), r_errors), \
+            f"EEP {level}-A chain != the plain reference"
+        errs = errors.cpu()
+        assert (errs == -1).sum() >= 2, errs
+        # the bytes as the staged ingest hands them over: contiguous rows
+        # (puncturing on the host leaves ``rec`` column-major, and the
+        # wrapper would time a transposing copy with the kernel)
+        flat = drec.reshape(-1, kept).to(torch.uint8).contiguous()
+        got, want = dp.depuncture(flat, prof), dp.depuncture_plain(flat,
+                                                                   prof)
+        check("depuncture", got, want, f"EEP {level}-A at {SF_KBPS} kbit/s, "
+              f"{flat.shape[0]} frames of {kept} bytes")
+        if level == 3:
+            # the kernel's device time inside a replayed CUDA graph (launch
+            # to launch, its wrapper's host time would hide it), and
+            # launch to launch as the chain calls it
+            k_ms = _common.graph_ms(lambda: dp.depuncture(flat, prof), 50)
+            call_ms, _ = cuda_ms(lambda: dp.depuncture(flat, prof), 50)
+            p_ms, _ = cuda_ms(lambda: dp.depuncture_plain(flat, prof), 5)
+            timed = {"ms": k_ms, "plain_ms": p_ms, "frames": flat.shape[0],
+                     "bytes": flat.numel() + got.numel(),
+                     "steps": flat.shape[0] * got.shape[1] // C.RATE}
+            print(f"{tag} kernel J at EEP 3-A, {flat.shape[0]} frames of "
+                  f"{kept} bytes: {k_ms:.4f} ms in a replayed graph, "
+                  f"{call_ms:.4f} ms launch to launch, plain {p_ms:.3f} ms, "
+                  f"bit-identical")
+        del drec, flat, got, want
+        print(f"{tag} chain EEP {level}-A at {SF_KBPS} kbit/s: B={EEP_SF} "
+              f"superframes of {kept} symbols a frame ({rec.nbytes / 1e6:.1f}"
+              f" MB int32, staged), {int((errs > 0).sum())} corrected, "
+              f"{int((errs == -1).sum())} uncorrectable; kernels J, A, B, I "
+              f"once each, equal to the plain-only call and the reference "
+              f"({ms:.1f} ms end to end)")
+    return {"launches": launches, **timed}
 
 
 def replay_phase(root: Path) -> None:
@@ -1291,7 +1392,7 @@ def tailbiting_phase(dev, tag, check) -> dict:
     print(f"tail-biting launches: {launches}")
     assert launches == {"acs_regs": 1, "acs_words": 1, "tb_walk": 1,
                         "tb_words": 0, "rs_decode": 0,
-                        "rs_superframes": 0}, launches
+                        "rs_superframes": 0, "depuncture": 0}, launches
     assert out.device == syms.device and out.shape == (TB_FRAMES, fb // 8)
     nerr = channel.bit_errors_on_device(out, bits)
     assert nerr < TB_FRAMES * fb * 1e-3, f"{nerr} bit errors at 3 dB"
@@ -1507,7 +1608,8 @@ def ingest_phase(dev, tag, packed) -> dict:
         INGEST_ROUNDS)
     assert launches == {"acs_regs": INGEST_BATCHES, "acs_words": 0,
                         "tb_walk": INGEST_BATCHES, "tb_words": 0,
-                        "rs_decode": 0, "rs_superframes": 0}, launches
+                        "rs_decode": 0, "rs_superframes": 0,
+                        "depuncture": 0}, launches
     med = {k: statistics.median(v) for k, v in secs.items()}
     spread = {k: f"{med[k]:.1f} ({min(v):.1f}-{max(v):.1f})"
               for k, v in secs.items()}
@@ -2055,7 +2157,8 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     errs = dict.fromkeys(("acs_regs", "tb_walk", "acs_words", "tb_words",
                           "kablate", "kdtype_op", "kdtype_chain",
-                          "kilp_streams", "rs_decode", "rs_synd_table"), 0)
+                          "kilp_streams", "rs_decode", "rs_synd_table",
+                          "depuncture"), 0)
 
     def check(kernel, got, want, what):
         e = max_abs_err(got, want)
@@ -2387,7 +2490,12 @@ def main() -> int:
     times["rs_decode"] = (rs_row["ms"], rs_row["plain_ms"])
     times["rs_synd_table"] = (rs_row["table_ms"], rs_row["plain_ms"])
     t0 = time.perf_counter()
-    eep_launches = eep_path(dev, tag, check)
+    eep_launches, j_row = eep_path(dev, tag, check)
+    times["depuncture"] = (j_row["ms"], j_row["plain_ms"])
+    # kernel J's bound: the kept bytes read and the mother-code bytes
+    # written once; its integer operations a step
+    bounds["depuncture"] = bound(j_row["bytes"],
+                                 j_row["steps"] * OPS_PER_STEP_J, clock_hz)
     replay_phase(ROOT)
     print(f"EEP and replay phases: {time.perf_counter() - t0:.1f} s; "
           f"launches on the superframe path {sf_launches}, on the EEP path "
@@ -2400,7 +2508,7 @@ def main() -> int:
 
     # --- phases 13-16: tail-biting, streaming, sessions, host ingest ---------
     fused_gsym = nsym / (times["acs_regs"][0] + times["tb_walk"][0]) / 1e6
-    paths = {"main": launches, **rs_paths}
+    paths = {"main": launches, "eep": eep_launches, **rs_paths}
     t_new = time.perf_counter()
     for name, phase in (
             ("tailbiting", lambda: tailbiting_phase(dev, tag, check)),
@@ -2453,6 +2561,9 @@ def main() -> int:
         "rs_decode": (csrc + "rs_decode.cu", "viterbi_tpu/ops/rs.py:166"),
         "rs_synd_table": (csrc + "probes/rs_synd.cu",
                           "viterbi_tpu/ops/rs.py:166"),
+        # no Pallas kernel: the JAX package's XLA scatter
+        "depuncture": (csrc + "depuncture.cu",
+                       "viterbi_tpu/models/dab.py depuncture_device"),
     }
     # kernel I's row counts both its entries
     i_paths = {path: c.get("rs_decode", 0) + c.get("rs_superframes", 0)
@@ -2469,12 +2580,14 @@ def main() -> int:
                        plain_ms=times[name][1], library_ms=None,
                        **bounds[name])
         else:
-            # no single PyTorch call computes kernels A-D or I; kernel I's
-            # launches are the superframe chain's (phase 8)
+            # no single PyTorch call computes kernels A-D, I or J; kernel
+            # I's launches are the superframe chain's (phase 8), kernel
+            # J's the EEP path's (phase 10)
             by_path = i_paths if name == "rs_decode" else {
                 path: c.get(name, 0) for path, c in paths.items()}
-            row.update(launches=by_path["superframe" if name == "rs_decode"
-                                        else "main"],
+            row.update(launches=by_path[{"rs_decode": "superframe",
+                                         "depuncture": "eep"}.get(name,
+                                                                  "main")],
                        ms=times[name][0], plain_ms=times[name][1],
                        library_ms=None, **bounds[name])
             if name in lanes_at_main:     # the form taken at this batch

@@ -22,7 +22,11 @@ Symbols go to the device once and every result is a tensor on that
 device. A host array goes to the card where there is one, unless the
 caller names a device; the superframe chain's goes through
 ``placement.ingest_words``, which narrows a large batch to packed words
-on its way. ``use_kernels=None`` takes the Hopper kernels
+on its way. Punctured symbols (the superframe chain with a
+``protection``, and the punctured-frame decoders) go through
+``placement.ingest_bytes`` and are depunctured on the device into the
+same packed words (``ops.depuncture``, kernel J on a card).
+``use_kernels=None`` takes the Hopper kernels
 (``acs_cuda.decode``: the fused ACS and the checkpoint walk; in the
 superframe chain also kernel I, the RS stage in one launch) for symbols
 on a CUDA device and the plain path for symbols on the CPU;
@@ -34,17 +38,18 @@ runs the chain data-parallel over the ranks of a mesh
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .. import constants as C
 from ..ops import acs, acs_cuda, counts, rs as rs_ops, traceback
+from ..ops import depuncture as depuncture_ops
 from ..parallel import distributed
 from ..parallel import mesh as mesh_mod
 from ..runtime import calllog
-from ..runtime.placement import on_device, on_device_words, want_kernels
+from ..runtime.placement import on_device_bytes, on_device_words, \
+    want_kernels
 from . import puncture as P
 
 SUPERFRAME_FRAMES = 5  # logical frames per DAB+ audio superframe
@@ -121,27 +126,81 @@ def rs_superframes(sf: torch.Tensor, rs_dims: int,
     return audio, errors
 
 
+def protection_profile(protection, bitrate_kbps: int) -> P.Profile:
+    """The ``puncture.Profile`` of a chain's ``protection``: an EEP
+    ``(profile, level)`` such as ``("A", 3)`` at ``bitrate_kbps``, or a
+    ``Profile`` itself, which must cover the bitrate's frame."""
+    if isinstance(protection, P.Profile):
+        prof = protection
+    else:
+        profile, level = protection
+        prof = P.eep_profile(bitrate_kbps, int(level), profile)
+    if prof.data_bits != 24 * bitrate_kbps:
+        raise ValueError(f"{prof.name} covers {prof.data_bits} data bits, "
+                         f"a frame at {bitrate_kbps} kbit/s has "
+                         f"{24 * bitrate_kbps}")
+    return prof
+
+
+def depuncture_words(rec: torch.Tensor, prof: P.Profile,
+                     kernels: bool) -> torch.Tensor:
+    """The chains' depuncture stage, the span ``depuncture``: [N, kept]
+    punctured symbols (uint8 or int32) -> int32[N, framebits+6]
+    frame-major packed words (``packed="bt"``), by kernel J or its plain
+    version. Counters: ``kept_bytes`` read, ``mother_bytes`` written,
+    ``launches``."""
+    with calllog.span("depuncture") as sp:
+        n0 = counts.total() if sp else 0
+        fn = depuncture_ops.depuncture if kernels \
+            else depuncture_ops.depuncture_plain
+        mother = fn(rec, prof)
+        if sp:
+            sp.count(kept_bytes=rec.numel() * rec.element_size(),
+                     mother_bytes=mother.numel(),
+                     launches=counts.total() - n0)
+    return mother.view(torch.int32)
+
+
 def decode_audio_superframes(symbols, bitrate_kbps: int,
-                             use_kernels: bool | None = None, device=None):
+                             use_kernels: bool | None = None, device=None,
+                             protection=None):
     """Decode a batch of DAB+ audio superframes end to end on the device.
 
     ``symbols``: int[B, 5, 4*(framebits+6)] soft symbols for 5 consecutive
     logical frames of one subchannel (already depunctured, as the
-    reference expects), a tensor or a host array.
+    reference expects), a tensor or a host array. With ``protection``
+    (an EEP ``(profile, level)`` or a ``puncture.Profile``, see
+    ``protection_profile``): int[B, 5, profile.transmitted_bits], the
+    subchannel's punctured symbols as the MSC carries them (the low byte
+    of each significant), depunctured on the device.
 
     Returns (audio uint8[B, rs_dims*110], rs_errors int32[B]) on the
     symbols' device: corrected audio superframe bytes and per-superframe
     corrected-byte counts (-1 = uncorrectable, matching
     RScheckSuperframe). The call is the span ``chain`` of
-    ``runtime.calllog``, with its stages ``ingest``, ``viterbi`` and
-    ``rs``; the caller reads the results back.
+    ``runtime.calllog``, with its stages ``ingest``, ``depuncture`` (with
+    ``protection``), ``viterbi`` and ``rs``; the caller reads the results
+    back.
     """
     with calllog.span("chain"):
         cfg = SubchannelConfig(bitrate_kbps)
-        syms, layout = on_device_words(symbols, device)
-        B = syms.shape[0]
+        if protection is None:
+            syms, layout = on_device_words(symbols, device)
+            B = syms.shape[0]
+            kernels = want_kernels(use_kernels, syms.device)
+        else:
+            prof = protection_profile(protection, bitrate_kbps)
+            rec = on_device_bytes(symbols, device)
+            kept = prof.transmitted_bits
+            if rec.dim() != 3 or rec.shape[1:] != (SUPERFRAME_FRAMES, kept):
+                raise ValueError(f"symbols must be [B, {SUPERFRAME_FRAMES}, "
+                                 f"{kept}] for {prof.name}, got "
+                                 f"{list(rec.shape)}")
+            B = rec.shape[0]
+            kernels = want_kernels(use_kernels, rec.device)
+            syms = depuncture_words(rec.reshape(-1, kept), prof, kernels)
+            layout = "bt"
         flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
-        kernels = want_kernels(use_kernels, syms.device)
         with calllog.span("viterbi") as sp:
             n0 = counts.total() if sp else 0
             frame_bytes = decode_frames(flat, cfg.framebits, kernels,
@@ -201,30 +260,15 @@ def depuncture_device(received: torch.Tensor, mask,
     return out
 
 
-@lru_cache(maxsize=64)
-def _masked_decoder(segments: tuple):
-    """Depuncture + decode closure for one profile, cached on the
-    profile's small ``segments`` tuple: the mask is built once and its
-    index tensor once per device."""
-    prof = P.Profile("cached", segments)
-    mask = prof.mask().astype(bool)
-    kept = np.nonzero(mask)[0]
-    framebits = prof.data_bits
-    index: dict[torch.device, torch.Tensor] = {}
-
-    def decode(received, use_kernels=None, device=None):
-        rec = on_device(received, device)
-        if rec.dim() != 2 or rec.shape[1] != kept.size:
-            raise ValueError(f"received must be [B, {kept.size}], "
-                             f"got {list(rec.shape)}")
-        idx = index.get(rec.device)
-        if idx is None:
-            idx = index[rec.device] = torch.from_numpy(kept).to(rec.device)
-        full = depuncture_device(rec, mask, idx)
-        return decode_frames(full, framebits,
-                             want_kernels(use_kernels, rec.device), scan=True)
-
-    return decode
+def _decode_punctured(received, prof: P.Profile, use_kernels, device):
+    """The punctured-frame decoders: [B, kept] symbols in, through the
+    byte ingest and the depuncture stage, to the Viterbi stage (the
+    serial traceback on the plain path, as the JAX package decodes
+    punctured frames)."""
+    rec = on_device_bytes(received, device)
+    kernels = want_kernels(use_kernels, rec.device)
+    return decode_frames(depuncture_words(rec, prof, kernels),
+                         prof.data_bits, kernels, scan=True, packed="bt")
 
 
 def decode_punctured_frames(received, bitrate_kbps: int, level: int,
@@ -239,7 +283,7 @@ def decode_punctured_frames(received, bitrate_kbps: int, level: int,
     symbols' device.
     """
     prof = P.eep_profile(bitrate_kbps, level, profile)
-    return _masked_decoder(prof.segments)(received, use_kernels, device)
+    return _decode_punctured(received, prof, use_kernels, device)
 
 
 def decode_profile_frames(received, profile: P.Profile,
@@ -251,4 +295,4 @@ def decode_profile_frames(received, profile: P.Profile,
     ``received``: int[B, profile.transmitted_bits] soft symbols. Returns
     uint8[B, profile.data_bits // 8] on the symbols' device.
     """
-    return _masked_decoder(profile.segments)(received, use_kernels, device)
+    return _decode_punctured(received, profile, use_kernels, device)

@@ -133,6 +133,7 @@ _ARGTYPES = {
                              _I, _P],
         "rs_superframes_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P,
                                   _I, _P],
+        "depuncture_launch": [_P, _L, _I, _P, _I, _I, _P, _I, _P],
     },
     PROBES: {
         "kablate_launch": [_P, _L, _L, _I, _P, _I, _I, _I, _P, _P, _I, _I,
@@ -227,6 +228,7 @@ ACS_WORDS = Kernel(MAIN, "acs_words_launch", "acs_words")
 TB_WORDS = Kernel(MAIN, "tb_words_launch", "tb_words")
 RS_DECODE = Kernel(MAIN, "rs_decode_launch", "rs_decode")
 RS_SUPERFRAMES = Kernel(MAIN, "rs_superframes_launch", "rs_superframes")
+DEPUNCTURE = Kernel(MAIN, "depuncture_launch", "depuncture")
 KABLATE = Kernel(PROBES, "kablate_launch", "kablate")
 KDTYPE_OP = Kernel(PROBES, "kdtype_op_launch", "kdtype_op")
 KDTYPE_CHAIN = Kernel(PROBES, "kdtype_chain_launch", "kdtype_chain")

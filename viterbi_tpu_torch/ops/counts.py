@@ -1,4 +1,4 @@
-"""The launch counts of kernels A-D and I (I by its two entries,
+"""The launch counts of kernels A-D, I and J (I by its two entries,
 codewords and superframes). Each wrapper adds one to its
 ``.launches`` where it launches its kernel, and nowhere else; a caller
 sets them to 0 before a path and reads them after it, to show that the
@@ -6,17 +6,18 @@ path went through the kernels."""
 
 from __future__ import annotations
 
-from . import acs_cuda, rs
+from . import acs_cuda, depuncture, rs
 from . import traceback as tb
 
-#: kernels A-D by their rows' names in chip_smoke.py's kernels line, and
-#: kernel I's two entries (its row, ``rs_decode``, counts both)
+#: kernels A-D and J by their rows' names in chip_smoke.py's kernels line,
+#: and kernel I's two entries (its row, ``rs_decode``, counts both)
 KERNELS = {"acs_regs": (acs_cuda, "forward_regs"),
            "acs_words": (acs_cuda, "forward"),
            "tb_walk": (tb, "tb_walk"),
            "tb_words": (tb, "tb_words"),
            "rs_decode": (rs, "rs_decode_blocks"),
-           "rs_superframes": (rs, "rs_check_superframes")}
+           "rs_superframes": (rs, "rs_check_superframes"),
+           "depuncture": (depuncture, "depuncture")}
 
 
 def zero_launches() -> None:
@@ -25,12 +26,12 @@ def zero_launches() -> None:
 
 
 def launches() -> dict:
-    """Launches of kernels A-D and I since ``zero_launches``."""
+    """Launches of kernels A-D, I and J since ``zero_launches``."""
     return {k: getattr(m, n).launches for k, (m, n) in KERNELS.items()}
 
 
 def total() -> int:
-    """Launches of kernels A-D and I, all entries together: read before
+    """Launches of kernels A-D, I and J, all entries together: read before
     and after a stage, the stage's launches."""
     return sum([getattr(m, n).launches for m, n in KERNELS.values()])
 

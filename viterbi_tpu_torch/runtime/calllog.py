@@ -6,11 +6,12 @@ port's one tracing system.
 **Spans.** ``span(name, **counters)`` marks one stage of a call: the
 exports (``api.deconvolve``, ``api.deconvolve_batch``,
 ``api.rs_check_superframe``) and the DAB+ chain (``chain``) are a call's
-root, and their stages (``ingest``, ``viterbi``, ``rs``, ``readback``)
-its children. Tracing is on while a torch profiler runs or call logging
-is on (config key ``log_calls=1``); the switch is read once, by a call's
-root, and its stages follow it (a thread-local stack). Off, ``span``
-returns one shared no-op object, which is false, and records nothing.
+root, and their stages (``ingest``, ``depuncture``, ``viterbi``,
+``rs``, ``readback``) its children. Tracing is on while a torch profiler
+runs or call logging is on (config key ``log_calls=1``); the switch is
+read once, by a call's root, and its stages follow it (a thread-local
+stack). Off, ``span`` returns one shared no-op object, which is false,
+and records nothing.
 On, a span
 
 * enters ``torch._C._profiler._RecordFunctionFast("viterbi_tpu_torch.
@@ -22,7 +23,8 @@ On, a span
   its ``parent``'s name, its ``thread``, ``time.perf_counter_ns()`` at
   its start and end (``t0_ns``, ``t1_ns``), and the ``counters`` set on
   it by ``count()`` (``h2d_bytes``, ``staged_chunks``, ``d2h_bytes``,
-  the kernels' ``launches``).
+  the depuncture stage's ``kept_bytes`` and ``mother_bytes``, the
+  kernels' ``launches``).
 
 **Call logging.** An export's root span is the logged call:
 ``Span.record(kind, symbols, **shape)`` gives it its kind and shape, and
@@ -65,7 +67,8 @@ _ADDR_CAP = 65536
 SPAN_CAP = 1 << 16
 PREFIX = "viterbi_tpu_torch."
 #: the counters summed by stage in the log and its summary
-_STAGE_COUNTERS = ("h2d_bytes", "staged_chunks", "d2h_bytes", "launches")
+_STAGE_COUNTERS = ("h2d_bytes", "staged_chunks", "d2h_bytes", "kept_bytes",
+                   "mother_bytes", "launches")
 
 
 _spans: collections.deque = collections.deque(maxlen=SPAN_CAP)

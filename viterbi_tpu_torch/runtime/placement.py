@@ -26,7 +26,9 @@ chunks of a fixed ``StagingRing`` (pinned for a card), and each chunk is
 copied up on a side stream while the host narrows the next: one byte a
 symbol crosses to the card, at the pinned rate, mostly hidden behind the
 narrowing. A smaller input, or one already on the device, takes
-``ingest``, op for op.
+``ingest``, op for op. ``ingest_bytes`` stages the same way rows that are
+not whole trellis steps (punctured symbols, which kernel J depunctures)
+and returns them as the bytes they are.
 """
 
 from __future__ import annotations
@@ -117,22 +119,50 @@ def ingest_words(data, device: torch.device):
     counts ``h2d_bytes`` (one a symbol when staged) and
     ``staged_chunks`` (0 on the direct path)."""
     src = _host_integers(data, device)
-    if src is None:
+    if src is None or src.shape[-1] % 4:
         return ingest(data, device), False
+    return _stage(src, device).view(torch.int32), "bt"
+
+
+def on_device_bytes(symbols, device=None) -> torch.Tensor:
+    """``on_device`` for a decode that reads each symbol's low byte
+    (kernel J): the symbols as ``ingest_bytes`` gives them."""
+    if isinstance(symbols, torch.Tensor) and device is None:
+        return ingest_bytes(symbols, symbols.device)
+    return ingest_bytes(symbols, strict_device(device))
+
+
+def ingest_bytes(data, device: torch.device) -> torch.Tensor:
+    """``data`` ([..., W] soft symbols, a host array or a tensor, W any
+    width) on ``device`` for a decode that reads each symbol's low byte:
+    a host input of integers of ``STAGE_MIN_BYTES`` or more narrowed
+    through the device's ``StagingRing`` into uint8[..., W]; anything
+    else as ``ingest`` gives it, int32. The ``ingest`` span counts as in
+    ``ingest_words``."""
+    src = _host_integers(data, device)
+    if src is None:
+        return ingest(data, device)
+    return _stage(src, device)
+
+
+def _stage(src: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The host integers ``src`` narrowed to a uint8 tensor of its shape
+    on ``device`` through the device's ``StagingRing``, in the span
+    ``ingest``."""
     with calllog.span("ingest") as sp:
-        *lead, width = src.shape
         dst = torch.empty(src.numel(), dtype=torch.uint8, device=device)
-        chunks = staging_ring(device).upload(src.reshape(-1, width), dst)
+        chunks = staging_ring(device).upload(src.reshape(-1, src.shape[-1]),
+                                             dst)
         if sp:
             sp.count(h2d_bytes=dst.numel(), staged_chunks=chunks)
-        return dst.view(torch.int32).view(*lead, width // 4), "bt"
+        return dst.view(src.shape)
 
 
 def _host_integers(data, device: torch.device):
-    """``data`` as a CPU tensor that ``ingest_words`` narrows (host
-    integers of a ``_NARROWS`` dtype, ``STAGE_MIN_BYTES`` or more, rows of
-    whole steps, not already on ``device``); None where it takes the
-    direct path."""
+    """``data`` as a CPU tensor that ``ingest_words`` and ``ingest_bytes``
+    narrow (host integers of a ``_NARROWS`` dtype, ``STAGE_MIN_BYTES`` or
+    more, not already on ``device``); None where it takes the direct
+    path."""
     if not isinstance(data, torch.Tensor):
         data = np.asarray(data)
         if data.nbytes < STAGE_MIN_BYTES:
@@ -149,7 +179,7 @@ def _host_integers(data, device: torch.device):
     elif (data.device.type != "cpu" or data.device == device
           or data.numel() * data.element_size() < STAGE_MIN_BYTES):
         return None
-    if data.dtype not in _NARROWS or data.dim() == 0 or data.shape[-1] % 4:
+    if data.dtype not in _NARROWS or data.dim() == 0:
         return None
     return data
 

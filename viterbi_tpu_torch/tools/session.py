@@ -111,7 +111,8 @@ def chunks(dev, data, tail, whole, chunk_frames: int, framebits: int,
         rec["launches_per_push"] = per_push
         rec["launches_ok"] = per_push == {"acs_regs": 2, "acs_words": 0,
                                           "tb_walk": 1, "tb_words": 0,
-                                          "rs_decode": 0, "rs_superframes": 0}
+                                          "rs_decode": 0, "rs_superframes": 0,
+                                          "depuncture": 0}
         if hold is not None:
             hold(fwd, walk)
         (a, akw, _), (b, bkw, _) = fwd

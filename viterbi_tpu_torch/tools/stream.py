@@ -82,7 +82,8 @@ def cell(dev, streams: int, n_blocks: int, blk: int, seed: int,
     if kernels:
         rec["launches_ok"] = launches == {"acs_regs": 2, "acs_words": 0,
                                           "tb_walk": 1, "tb_words": 0,
-                                          "rs_decode": 0, "rs_superframes": 0}
+                                          "rs_decode": 0, "rs_superframes": 0,
+                                          "depuncture": 0}
         if hold is not None:
             hold(fwd, walk)
         (wa, wkw, _), (fa, fkw, _) = fwd
