@@ -7,8 +7,8 @@ Phases (each raises on failure, so the exit code is non-zero):
   1. device: require a CUDA device; print the card's name and power limit;
   2. build: compile the decode kernels and the probes' kernels from
      viterbi_tpu_torch/csrc with nvcc, both libraries at the same time;
-     kernels A, C and E, in both forms (one lane a frame and four), must
-     spill nothing; kernel I must spill nothing, and in both syndrome
+     kernels A, C and E, in both forms (one lane a frame and four; A also
+     in its warp-wide form, 32 lanes a frame), must spill nothing; kernel I must spill nothing, and in both syndrome
      forms use at most 64 registers a thread;
   3. kernels: kernel A (fused register-exchange ACS) and kernel B
      (checkpoint walk), kernel C (decisions) and kernel D (decision-word
@@ -41,8 +41,11 @@ Phases (each raises on failure, so the exit code is non-zero):
   7. times: both paths end to end; each kernel against its plain
      version on the main-path batch, timed and held bit for bit; the
      main path's output against a decode through plain versions only
-     (forward_plain, then tb_words_plain); the batch sweep of kernels A
-     and C in both forms and, at four batches, of kernel B in every form
+     (forward_plain, then tb_words_plain); kernel A at one frame of 3072
+     bits (a live call's unpacked symbols) in its warp-wide and its
+     four-lane form, held bit for bit, ms and us a step in a replayed
+     graph (kernel A's row, "one_frame"); the batch sweep of kernels A
+     and C in every form and, at four batches, of kernel B in every form
      (probes.kbatch); kernel B's row is the walk with the bytes in the
      same launch, as the main path runs it, and beside it stand the walk
      alone and its loads as one independent gather, the card's floor for
@@ -397,6 +400,7 @@ def window_bytes(rs):
 
 
 FORMS = (None, 1, 4)     # kernels A and C: the batch's choice, then by name
+REGS_FORMS = (*FORMS, 32)   # kernel A also a warp a frame
 
 
 def hold_forward(dev, rng, check, batch, fb, packed, pad=0, ckpt=None,
@@ -419,7 +423,7 @@ def hold_forward(dev, rng, check, batch, fb, packed, pad=0, ckpt=None,
             f"ckpt={ckpt}")
     kw = dict(initial_metrics=init, packed=packed, front_pad=pad, ckpt=ckpt)
     r_p, m_p = acs_cuda.forward_regs_plain(syms, n, **kw)
-    for lanes in FORMS:
+    for lanes in REGS_FORMS:
         r_k, m_k = acs_cuda.forward_regs(syms, n, lanes=lanes, **kw)
         check("acs_regs", r_k, r_p, f"{what}, lanes={lanes} regs")
         check("acs_regs", m_k, m_p, f"{what}, lanes={lanes} metrics")
@@ -430,6 +434,35 @@ def hold_forward(dev, rng, check, batch, fb, packed, pad=0, ckpt=None,
         d_k, m_k = acs_cuda.forward(syms, n, init, packed, lanes=lanes)
         check("acs_words", d_k, d_p, f"{what}, lanes={lanes} decisions")
         check("acs_words", m_k, m_p, f"{what}, lanes={lanes} metrics")
+
+
+def one_frame_times(dev, tag, check) -> dict:
+    """Kernel A at one frame of FB_MAIN bits on unpacked int32 symbols (a
+    live call's): the warp-wide and the four-lane form, each held bit for
+    bit and timed in a replayed CUDA graph, in ms and in us a step."""
+    import torch
+    from viterbi_tpu_torch import constants as C
+    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.probes import _common
+    n, ck = FB_MAIN + C.TAIL_BITS, acs_cuda.DECODE_CKPT
+    raw = np.random.default_rng(21).integers(0, 256, (1, C.RATE * n),
+                                             dtype=np.int32)
+    syms = torch.from_numpy(raw).to(dev)
+    r_p, m_p = acs_cuda.forward_regs_plain(syms, n, ckpt=ck)
+    row = {"framebits": FB_MAIN, "batch": 1, "ms": {}, "us_per_step": {}}
+    for lanes in (acs_cuda.WARP_LANES, acs_cuda.LANES):
+        r_k, m_k = acs_cuda.forward_regs(syms, n, ckpt=ck, lanes=lanes)
+        what = f"B=1, framebits {FB_MAIN}, unpacked, lanes={lanes}"
+        check("acs_regs", r_k, r_p, what + " regs")
+        check("acs_regs", m_k, m_p, what + " metrics")
+        ms = _common.graph_ms(lambda: acs_cuda.forward_regs(
+            syms, n, ckpt=ck, lanes=lanes), 50)
+        row["ms"][lanes] = ms
+        row["us_per_step"][lanes] = 1e3 * ms / n
+    print(f"{tag} acs_regs at B=1 framebits={FB_MAIN}, unpacked: " + ", ".join(
+        f"{lanes} lanes {row['ms'][lanes]:.4f} ms, "
+        f"{row['us_per_step'][lanes]:.5f} us a step" for lanes in row["ms"]))
+    return row
 
 
 def hold_walk(dev, rng, check, regs, ckpt, gap, what) -> None:
@@ -671,7 +704,7 @@ def hold_path_kernels(flat, framebits, check, what) -> None:
     n, ck = framebits + C.TAIL_BITS, acs_cuda.DECODE_CKPT
     what = f"{what}: {flat.shape[0]} x {framebits} unpacked, ckpt {ck}"
     r_p, m_p = acs_cuda.forward_regs_plain(flat, n, ckpt=ck)
-    for lanes in reversed(FORMS):       # the path's own form last
+    for lanes in reversed(REGS_FORMS):       # the path's own form last
         r_k, m_k = acs_cuda.forward_regs(flat, n, ckpt=ck, lanes=lanes)
         check("acs_regs", r_k, r_p, f"{what}, lanes={lanes} regs")
         check("acs_regs", m_k, m_p, f"{what}, lanes={lanes} metrics")
@@ -2124,13 +2157,14 @@ def main() -> int:
             if lib is _build.MAIN or "kablate" in name or "rs_" in name:
                 print(f"  ptxas: {name}: {regs} registers, spills {st} B "
                       f"stored, {ld} B loaded")
-    # kernels A, C and E: one lane a frame and four, packed and unpacked
-    # symbols (E: six variants, packed); none may spill
+    # kernels A, C and E: one lane a frame and four (A also a warp a
+    # frame), packed and unpacked symbols (E: six variants, packed); none
+    # may spill
     forward = {n: v for lib in (_build.MAIN, _build.PROBES)
                for n, v in ptxas_summary(_build.build_log(library=lib)).items()
                if any(k in n for k in ("acs_regs_kernel", "acs_words_kernel",
                                        "kablate_kernel"))}
-    for kernel, count in (("acs_regs_kernel", 4), ("acs_words_kernel", 4),
+    for kernel, count in (("acs_regs_kernel", 6), ("acs_words_kernel", 4),
                           ("kablate_kernel", 12)):
         names = [n for n in forward if kernel in n]
         assert len(names) == count, f"{kernel}'s instantiations: {names}"
@@ -2192,7 +2226,7 @@ def main() -> int:
         what = f"framebits {fb}, packed={packed}, front_pad={pad}"
         kw = dict(initial_metrics=init, packed=packed, front_pad=pad)
         r_p, m_p = acs_cuda.forward_regs_plain(syms, n, **kw)
-        for lanes in FORMS:
+        for lanes in REGS_FORMS:
             r_k, m_k = acs_cuda.forward_regs(syms, n, lanes=lanes, **kw)
             check("acs_regs", r_k, r_p, f"{what}, lanes={lanes} regs")
             check("acs_regs", m_k, m_p, f"{what}, lanes={lanes} metrics")
@@ -2382,6 +2416,7 @@ def main() -> int:
         lambda: acs_cuda.forward_regs_plain(dsyms, n, ckpt=ck, packed="bt"),
         1, ("regs", "metrics"))
     gap = n - (regs.shape[0] - 1) * ck
+    one_frame = one_frame_times(dev, tag, check)
 
     def walk_plain():
         rs = tb.tb_walk_plain(regs, ck, gap)
@@ -2408,7 +2443,7 @@ def main() -> int:
     del regs, dec, dec_p
     lanes_at_main = {
         "acs_regs": acs_cuda._lanes(B_MAIN, acs_cuda.REGS_ONE_LANE_FRAMES,
-                                    None),
+                                    None, acs_cuda.REGS_WARP_FRAMES),
         "acs_words": acs_cuda._lanes(B_MAIN, acs_cuda.WORDS_ONE_LANE_FRAMES,
                                      None)}
 
@@ -2592,6 +2627,8 @@ def main() -> int:
                        library_ms=None, **bounds[name])
             if name in lanes_at_main:     # the form taken at this batch
                 row["lanes"] = lanes_at_main[name]
+            if name == "acs_regs":
+                row["one_frame"] = one_frame
             if name == "tb_walk":
                 row.update(walk_extra)
             # the launches of each path's call (the session: a push)

@@ -31,6 +31,13 @@ B = 256
 RAGGED = (1, 3, 7, 9, 31, 33, 1000)
 # kernels A and C: the form the batch selects, one lane a frame, four
 FORMS = (None, 1, acs_cuda.LANES)
+# kernel A also in its warp-wide form
+REGS_FORMS = (*FORMS, acs_cuda.WARP_LANES)
+# the warp-wide form at the DAB frame sizes and two more on the byte grid,
+# at the batches around it and around its threshold
+WARP_FRAMEBITS = (768, 1152, 1536, 2304, 3072, 96, 4608)
+WARP_BATCHES = (1, 2, 5, 31, 33, 40, 256, acs_cuda.REGS_WARP_FRAMES - 1,
+                acs_cuda.REGS_WARP_FRAMES + 1)
 REGS_SHAPES = [
     (192, False, 0, True), (768, "bt", 12, False), (1536, True, 0, True),
     (3072, "bt", 0, True), (3072, False, 6, False), (9216, "bt", 0, False),
@@ -72,7 +79,7 @@ def _hold_regs(dev, framebits, packed, front_pad, with_init, batch=B,
               ckpt=ckpt)
     r_p, m_p = acs_cuda.forward_regs_plain(syms, framebits + 6, **kw)
     # the form the batch selects, then each form by name
-    for lanes in FORMS:
+    for lanes in REGS_FORMS:
         before = acs_cuda.forward_regs.launches
         r_k, m_k = acs_cuda.forward_regs(syms, framebits + 6, lanes=lanes,
                                          **kw)
@@ -105,6 +112,68 @@ def test_acs_regs_kernel_reset_inside_a_window(cuda, front_pad, ckpt):
 @pytest.mark.parametrize("ckpt", range(2, 28, 2))
 def test_acs_regs_kernel_every_checkpoint_period(cuda, ckpt):
     _hold_regs(cuda, 90, "bt", 0, True, 65, ckpt)
+
+
+def _hold_every_form(syms, nsteps, **kw):
+    """Kernel A in every form, each by name and as the batch selects,
+    against its plain version and the other forms, bit for bit; the
+    batch's choice is the form it launched."""
+    r_p, m_p = acs_cuda.forward_regs_plain(syms, nsteps, **kw)
+    B = r_p.shape[2]
+    want = acs_cuda._lanes(B, acs_cuda.REGS_ONE_LANE_FRAMES, None,
+                           acs_cuda.REGS_WARP_FRAMES)
+    assert want == (acs_cuda.WARP_LANES if B < acs_cuda.REGS_WARP_FRAMES
+                    else acs_cuda.LANES)
+    for lanes in REGS_FORMS:
+        before = dict(acs_cuda.REGS_LAUNCHES)
+        r_k, m_k = acs_cuda.forward_regs(syms, nsteps, lanes=lanes, **kw)
+        took = [k for k, n in acs_cuda.REGS_LAUNCHES.items()
+                if n != before[k]]
+        assert took == [lanes or want], (lanes, took)
+        assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p), lanes
+    return r_p
+
+
+@pytest.mark.parametrize("batch", WARP_BATCHES)
+@pytest.mark.parametrize("framebits", WARP_FRAMEBITS)
+def test_acs_regs_warp_form_matches_every_form(cuda, framebits, batch):
+    """The decode path's layout: ckpt 24, so a partial last checkpoint at
+    every DAB size; entry metrics; unpacked int32 symbols (the live
+    calls') and frame-major packed words."""
+    rng = np.random.default_rng(framebits * 1000 + batch)
+    n = framebits + 6
+    for packed in (False, "bt"):
+        syms = _symbols(rng, framebits, packed, cuda, batch)
+        init = torch.from_numpy(rng.integers(0, 256, (batch, 64))
+                                .astype(np.int32)).to(cuda)
+        regs = _hold_every_form(syms, n, initial_metrics=init, ckpt=24,
+                                packed=packed)
+        assert regs.shape[0] == -(-n // 24)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 33])
+def test_acs_regs_warp_form_on_the_session_and_tail_biting_shapes(cuda,
+                                                                  batch):
+    """As tail-biting runs kernel A (no tail, the warm-up's metrics,
+    choose_ckpt's period), as streaming and the session run it (a window
+    of frame-major words that starts inside the rows, entry metrics, a
+    partial last checkpoint) and with a front pad, whose reset falls
+    inside a six-step window."""
+    rng = np.random.default_rng(batch)
+    raw = rng.integers(0, 256, (batch, 4 * 800), dtype=np.int32)
+    init = torch.from_numpy(rng.integers(0, 256, (batch, 64))
+                            .astype(np.int32)).to(cuda)
+    syms = torch.from_numpy(raw).to(cuda)
+    _hold_every_form(syms, 768, initial_metrics=init,
+                     ckpt=acs_cuda.choose_ckpt(768))
+    words = torch.from_numpy(acs_cuda.pack_symbols_host(raw)).to(cuda)
+    for start, steps in ((0, 480), (7, 490), (314, 486)):
+        _hold_every_form(words[:, start:], steps, initial_metrics=init,
+                         ckpt=24, packed="bt")
+    for pad in (4, 14, 22):
+        _hold_every_form(words, 774, initial_metrics=init, ckpt=24,
+                         packed="bt", front_pad=pad)
+        _hold_every_form(syms, 774, ckpt=18, front_pad=pad)
 
 
 @pytest.mark.parametrize("anchored,interior", [(False, False), (True, False),

@@ -16,12 +16,16 @@ import torch
 from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch.ops import acs as acs_ops
 from viterbi_tpu_torch.ops import acs_cuda
-from viterbi_tpu_torch.ops.acs_cuda import (lane_of, pattern, polarity_word,
-                                            slot_of, state_of)
+from viterbi_tpu_torch.ops.acs_cuda import (lane_of, pattern, pattern_word,
+                                            polarity_word, slot_of, state_of,
+                                            warp_complement, warp_metric_lane,
+                                            warp_sent, warp_source,
+                                            warp_state)
 
 CSRC = Path(acs_cuda.__file__).resolve().parent.parent / "csrc"
 LANE_COUNTS = (1, 2, 4)
 P = acs_cuda.PHASES
+W = acs_cuda.WARP_LANES          # kernel A's warp-wide form
 
 
 def test_header_constants_match_the_mirrors():
@@ -36,6 +40,142 @@ def test_header_constants_match_the_mirrors():
     # the header asserts the same schedule for the same lane counts
     assert "static_assert(schedule_ok(1) && schedule_ok(2) && " \
            "schedule_ok(4)" in text
+
+
+def test_warp_wide_constants_match_the_header():
+    text = (CSRC / "trellis.cuh").read_text()
+    regs = (CSRC / "acs_regs.cuh").read_text()
+    const = lambda name, t=text: int(re.search(
+        rf"constexpr int {name} = (\d+);", t).group(1))
+    assert const("kWarpLanes") == W == 32
+    assert const("kChunk", regs) == acs_cuda.CHUNK == 6
+    assert "static_assert(warp_schedule_ok()" in text
+
+
+def test_warp_lanes_hold_their_butterflies_once_each():
+    """Lane l holds butterfly l, old states l and l + 32, its low
+    predecessor in slot l & 1; every state once."""
+    seen = []
+    for l in range(W):
+        pair = [warp_state(l, i) for i in (0, 1)]
+        assert sorted(pair) == [l, l + 32]
+        assert warp_state(l, l & 1) == l
+        seen += pair
+    assert sorted(seen) == list(range(C.NUM_STATES))
+
+
+@pytest.mark.parametrize("slot", [0, 1])
+def test_warp_shuffles_deliver_every_state_to_its_slot(slot):
+    """After a step the slot-th shuffle brings slot ``slot`` of every lane
+    the new state it holds next: 2 * src + u of the source's butterfly,
+    with u what the source sends in that shuffle; every lane is read by
+    exactly one lane in each shuffle."""
+    sources = [warp_source(l, slot) for l in range(W)]
+    assert sorted(sources) == list(range(W))
+    for l, src in enumerate(sources):
+        assert (2 * src + warp_sent(src, slot)) % C.NUM_STATES \
+            == warp_state(l, slot)
+    for l in range(W):
+        assert {warp_sent(l, 0), warp_sent(l, 1)} == {0, 1}
+
+
+def test_warp_complement_follows_the_slots():
+    """Slot 0 takes the low predecessor's metric m into new state 2l and
+    its complement into 2l + 1 when it holds the low predecessor, the
+    other way round when it holds the high one."""
+    for l in range(W):
+        low = warp_state(l, 0) < 32
+        takes_m = low == (warp_sent(l, 0) == 0)
+        assert warp_complement(l) == (not takes_m)
+
+
+@pytest.mark.parametrize("step", range(W // 8))
+def test_warp_metric_lanes_give_every_butterfly_its_metric(step):
+    """In a round of the warp-wide form lane j computes the metric of
+    pattern j & 7 for step j // 8; the lane warp_metric_lane names holds
+    each lane's plain branch metric of butterfly l at that step."""
+    rng = np.random.default_rng(step)
+    s4 = rng.integers(0, 256, (W // 8, 65, 4), dtype=np.int64)
+    words = torch.from_numpy(s4[..., 0] | s4[..., 1] << 8
+                             | s4[..., 2] << 16 | s4[..., 3] << 24)
+    rounds = [acs_cuda.eight_branch_metrics(words[j // 8],
+                                            pattern_word(j & 7))[:, 0]
+              for j in range(W)]
+    want = acs_ops.branch_metrics(torch.from_numpy(s4[step]))
+    for l in range(W):
+        assert torch.equal(rounds[warp_metric_lane(l, step)], want[:, l])
+
+
+def _warp_step(M, Q, m, odd):
+    """One step of the warp-wide form as the kernel makes it: each lane
+    computes the two new states it sends (its branch metrics picked for
+    its slot order, the tie broken towards the high predecessor in either
+    slot), every slot takes its value from warp_source's lane, and an odd
+    step renormalizes by state 0's metric, read beside the exchange."""
+    sent_m, sent_q = [], []
+    for l in range(W):
+        tie = l & 1
+        a = m[l] ^ (63 if warp_complement(l) else 0)
+        b = a ^ 63
+        nm, nq = [], []
+        for x, y in ((a, b), (b, a)):
+            p0 = torch.clamp_max(M[l][0] + x, 255)
+            nm.append(torch.minimum(M[l][1] + y, p0))
+            take1 = torch.clamp_max(M[l][1] + y + tie, 255 + tie) <= p0
+            nq.append(torch.where(take1, Q[l][1], Q[l][0]))
+        sent_m.append(nm)
+        sent_q.append(nq)
+    m0 = sent_m[0][0]
+    M = [[sent_m[warp_source(l, i)][i] for i in (0, 1)] for l in range(W)]
+    Q = [[sent_q[warp_source(l, i)][i] for i in (0, 1)] for l in range(W)]
+    if odd:
+        sub = (m0 > 150) * 63
+        M = [[torch.clamp_min(v - sub, 0) for v in lane] for lane in M]
+    return M, Q
+
+
+@pytest.mark.parametrize("nsteps", [6, 12, 16, 20, 22, 26])
+def test_warp_wide_walk_matches_the_plain_version(nsteps):
+    """The warp-wide form's walk of one checkpoint window as the kernel
+    makes it (chunks of six steps, then of two; a round of branch metrics
+    for every four steps of a chunk, from the words its first lanes hold;
+    the exchange after every step; the deferred shift a chunk) gives
+    kernel A's checkpoint and final metrics."""
+    rng = np.random.default_rng(nsteps)
+    B = 23
+    raw = rng.integers(0, 256, (B, 4 * nsteps), dtype=np.int32)
+    words = torch.from_numpy(acs_cuda.pack_symbols_host(raw))      # [B, T]
+    init = torch.from_numpy(rng.integers(0, 256, (B, 64)).astype(np.int32))
+    want_regs, want_met = acs_cuda.forward_regs_plain(
+        words, nsteps, init, ckpt=nsteps, packed="bt")
+    u32 = words.to(torch.int64) & 0xFFFFFFFF
+    M = [[init[:, warp_state(l, i)].to(torch.int64) for i in (0, 1)]
+         for l in range(W)]
+    Q = [[torch.full((B,), warp_state(l, i), dtype=torch.int32)
+          for i in (0, 1)] for l in range(W)]
+    t = 0
+    while t < nsteps:
+        n = acs_cuda.CHUNK if t + acs_cuda.CHUNK <= nsteps else 2
+        # lane j < CHUNK holds the word of step t + j
+        win = [u32[:, t + j] if j < n else torch.zeros(B, dtype=torch.int64)
+               for j in range(W)]
+        rounds = [[acs_cuda.eight_branch_metrics(
+            win[r * (W // 8) + j // 8], pattern_word(j & 7))[:, 0]
+            .to(torch.int64) for j in range(W)] for r in range(-(-n // 4))]
+        for s in range(n):
+            m = [rounds[s // 4][warp_metric_lane(l, s)] for l in range(W)]
+            M, Q = _warp_step(M, Q, m, (t + s) % 2 == 1)
+        Q = [[(q << n) | (warp_state(l, i) & ((1 << n) - 1))
+              for i, q in enumerate(lane)] for l, lane in enumerate(Q)]
+        t += n
+    got_met = torch.empty((B, 64), dtype=torch.int64)
+    got_regs = torch.empty((64, B), dtype=torch.int32)
+    for l in range(W):
+        for i in (0, 1):
+            got_met[:, warp_state(l, i)] = M[l][i]
+            got_regs[warp_state(l, i)] = Q[l][i]
+    assert torch.equal(got_met.to(torch.int32), want_met)
+    assert torch.equal(got_regs, want_regs[-1])
 
 
 @pytest.mark.parametrize("lanes", LANE_COUNTS)
@@ -274,6 +414,30 @@ def test_lane_walk_matches_the_plain_versions(lanes, nsteps):
     assert torch.equal(got_regs, want_regs[-1])
     got_dec = torch.stack(dec)                                   # [T, B, 2]
     assert torch.equal(got_dec & 0xFFFFFFFF, u32(want_dec))
+
+
+def test_kernel_a_takes_the_warp_wide_form_below_its_threshold():
+    """Kernel A: WARP_LANES below REGS_WARP_FRAMES, four lanes from there
+    to REGS_ONE_LANE_FRAMES, one beyond; any form by name; kernel C (no
+    warp-wide form) refuses it."""
+    warp, one = acs_cuda.REGS_WARP_FRAMES, acs_cuda.REGS_ONE_LANE_FRAMES
+    pick = lambda B, lanes=None: acs_cuda._lanes(B, one, lanes, warp)
+    assert 1 < warp < one
+    for B in (0, 1, 2, 5, 40, warp - 1):
+        assert pick(B) == acs_cuda.WARP_LANES
+    for B in (warp, warp + 1, one - 1):
+        assert pick(B) == acs_cuda.LANES
+    assert pick(one) == pick(10 * one) == 1
+    for lanes in (1, acs_cuda.LANES, acs_cuda.WARP_LANES):
+        assert pick(1, lanes) == pick(10 * one, lanes) == lanes
+    for lanes in (0, 2, 8, 16, 64):
+        with pytest.raises(ValueError, match="lanes"):
+            pick(64, lanes)
+    with pytest.raises(ValueError, match="lanes"):
+        acs_cuda._lanes(1, acs_cuda.WORDS_ONE_LANE_FRAMES,
+                        acs_cuda.WARP_LANES)
+    assert set(acs_cuda.REGS_LAUNCHES) == {1, acs_cuda.LANES,
+                                           acs_cuda.WARP_LANES}
 
 
 def test_the_batch_selects_the_form():

@@ -402,6 +402,23 @@ def test_kbatch_needs_a_card_and_sweeps_the_decode_batches():
             kbatch.sweep_walk(acs_cuda, tb, C)
 
 
+def test_kbatch_small_sweep_needs_a_card_and_spans_the_forms_crossings():
+    """Kernel A's small-batch sweep covers the live calls' batches (1 to
+    40 frames), the bulk chains' smallest (1600, 3200), the warp-wide
+    form's threshold on both sides, at 768 and 3072 bits, and names all
+    three forms."""
+    from viterbi_tpu_torch.probes import kbatch
+    warp = acs_cuda.REGS_WARP_FRAMES
+    assert {1, 5, 40, 1600, 3200, 4096} <= set(kbatch.SMALL_BATCHES)
+    assert min(kbatch.SMALL_BATCHES) < warp <= max(kbatch.SMALL_BATCHES)
+    assert set(kbatch.SMALL_FRAMEBITS) == {768, 3072}
+    assert kbatch.regs_forms(acs_cuda) == (1, acs_cuda.LANES,
+                                           acs_cuda.WARP_LANES)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kbatch.sweep_small(acs_cuda)
+
+
 def test_kbatch_walk_sweep_frames_are_random_encoded_frames():
     """Kernel B's sweep needs survivors that sit in many states, as real
     frames' do: its frames are random data through the harness's encoder

@@ -19,7 +19,7 @@ from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.models import dab
-from viterbi_tpu_torch.ops import counts
+from viterbi_tpu_torch.ops import acs_cuda, counts
 from viterbi_tpu_torch.runtime import calllog, dispatch
 from viterbi_tpu_torch.runtime import config as config_mod
 
@@ -168,6 +168,37 @@ def test_counters_match_the_bytes_and_the_launch_counts(entry, monkeypatch):
         assert stages["rs"].counters == {"launches": 1}
 
 
+@pytest.mark.parametrize("entry,lanes", [("deconvolve", 32),
+                                         ("deconvolve_batch", 4),
+                                         ("deconvolve_batch", 1)])
+def test_viterbi_span_names_kernel_a_form(entry, lanes, monkeypatch):
+    """The viterbi stage's ``acs_lanes`` is the form kernel A launched in
+    (here a wrapper that counts a launch in the form named, as a card's
+    would, and runs the plain version), and the per-form tally moved by
+    the stage's one launch; ``zero_launches`` clears the tally."""
+    real = acs_cuda.forward_regs
+
+    def launched(*args, **kwargs):
+        launched.launches += 1
+        acs_cuda.REGS_LAUNCHES[lanes] += 1
+        return real(*args, **kwargs)
+    launched.launches = 0
+    monkeypatch.setattr(acs_cuda, "forward_regs", launched)
+    monkeypatch.setattr(dispatch.state(), "variant",
+                        dispatch.VARIANTS.index("cuda_fused"))
+    before = counts.regs_forms()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _call(entry)
+    _, stages = _one_tree(calllog.spans(), entry)
+    assert stages["viterbi"].counters["acs_lanes"] == lanes
+    moved = {k: n - before[k] for k, n in counts.regs_forms().items()}
+    assert moved == {k: int(k == lanes) for k in before}
+    assert counts.acs_form(counts.regs_forms()) == {}
+    counts.zero_launches()
+    assert set(counts.regs_forms().values()) == {0}
+
+
 def _refuse_profiler_spans(monkeypatch):
     """Every form of a profiler span raises if entered."""
     def refuse(*args, **kwargs):
@@ -276,8 +307,9 @@ def test_each_logged_line_is_in_the_file_when_its_call_returns(tmp_path):
 @pytest.mark.cuda
 def test_on_the_card_the_stages_count_the_kernels_and_the_copies():
     """On the card each export and the chain count their own kernels
-    (A and B a Viterbi stage, I an RS stage) and copies, and the
-    profiler sees every span beside the device's operations."""
+    (A and B a Viterbi stage, I an RS stage, with kernel A's form: these
+    batches take the warp-wide one) and copies, and the profiler sees
+    every span beside the device's operations."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     dev = torch.device("cuda", 0)
@@ -298,7 +330,8 @@ def test_on_the_card_the_stages_count_the_kernels_and_the_copies():
         assert stages["ingest"].counters == {"h2d_bytes": nbytes[entry],
                                              "staged_chunks": 0}
         if "viterbi" in stages:
-            assert stages["viterbi"].counters == {"launches": 2}
+            assert stages["viterbi"].counters == {
+                "launches": 2, "acs_lanes": acs_cuda.WARP_LANES}
         if "rs" in stages:
             assert stages["rs"].counters == {"launches": 1}
     names = {e.key for e in prof.key_averages()}

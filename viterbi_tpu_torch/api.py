@@ -218,9 +218,11 @@ def _decode_batch(symbols: np.ndarray, framebits: int,
         syms, packed = placement.ingest_words(symbols, st.device)
     with calllog.span("viterbi") as sp:
         n0 = counts.total() if sp else 0
+        forms = counts.regs_forms() if sp else None
         out = _decode_tensor(syms, framebits, variant, packed)
         if sp:
-            sp.count(launches=counts.total() - n0)
+            sp.count(launches=counts.total() - n0,
+                     **counts.acs_form(forms))
     return _readback(out)
 
 

@@ -22,8 +22,9 @@
 //     from the entry metrics and the registers from the state index.
 //
 // Layout: two forms of one device code, chosen by the wrapper from the
-// batch. With one lane a frame a thread keeps the 64 metrics and the 64
-// registers in registers and a warp holds 32 frames. With kLanes = 4
+// batch, and a third below them (the warp-wide form, further down). With
+// one lane a frame a thread keeps the 64 metrics and the 64 registers in
+// registers and a warp holds 32 frames. With kLanes = 4
 // neighbouring lanes a frame each lane keeps 16 of either, eight frames a
 // warp. A fully unrolled step reads and writes them by compile-time
 // index, so the butterfly permutation (new state 2b, 2b+1 <- old b, b+32)
@@ -71,8 +72,29 @@
 // and a warp touch eight rows; each 32-byte sector then serves 8 steps of
 // one frame from L1, and time-major symbols are no faster on the card.
 //
+// The warp-wide form (kWarpLanes = 32 lanes, a warp, a frame) is the
+// third, for batches below a few thousand frames. There the other forms
+// leave most schedulers idle and a frame's time is one warp's serial
+// steps: 0.18 us a step with four lanes, whatever the batch up to 4096.
+// A lane holds one butterfly (two metrics, two registers), an exchange
+// by shuffles follows every step, and what every lane of the other forms
+// computes alike is shared out: the symbol words (lane j holds step j of
+// a six-step chunk, loaded a chunk ahead) and the eight branch metrics
+// (a round of 32 lanes computes four steps' worth). About 31 instructions
+// a lane a step (32 x 31 a frame, 1.5 times four lanes' 660), and what
+// bounds a single frame is the chain of dependent instructions from one
+// step's metrics to the next: two adds with a min, a shuffle, the
+// renormalization after odd steps. So nothing is selected after a
+// shuffle: each lane sends its two new states so that each arrives in the
+// slot its reader keeps it in (trellis.cuh, warp_state), and a lane that
+// holds its butterfly's states swapped takes its branch metrics and ties
+// accordingly, off that chain. 0.044-0.050 us a step up to 512 frames,
+// then its warps share the schedulers; it is the faster form below about
+// 3600 frames (PERF.md).
+//
 // The device code is in acs_regs.cuh, which the ablation probe
-// (probes/kablate.cu) instantiates too, with parts of the step left out.
+// (probes/kablate.cu) instantiates too, with parts of the step left out
+// (one lane and four lanes a frame).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -87,8 +109,12 @@ acs_regs_kernel(const int32_t* __restrict__ sym, int64_t sb, int64_t st,
                 const int32_t* __restrict__ init, int B, int total, int pad,
                 int reset_at, int ckpt, int32_t* __restrict__ regs,
                 int32_t* __restrict__ met) {
-  acs_regs_frame<L, kUnpacked, 0>(sym, sb, st, init, B, total, pad, reset_at,
-                                  ckpt, regs, met);
+  if constexpr (L == kWarpLanes)
+    acs_regs_frame_warp<kUnpacked>(sym, sb, st, init, B, total, pad,
+                                   reset_at, ckpt, regs, met);
+  else
+    acs_regs_frame<L, kUnpacked, 0>(sym, sb, st, init, B, total, pad,
+                                    reset_at, ckpt, regs, met);
 }
 
 }  // namespace
@@ -98,13 +124,14 @@ extern "C" {
 // sym: frame b's step-u symbols at sym + b*sb + u*st (one packed int32
 // word, symbol q in byte q) or, with unpacked != 0, four int32 symbols
 // from there. init: [B, 64]; regs: [ceil(total/ckpt), 64, B]; met: [B, 64].
-// lanes: 1 or kLanes lanes a frame; threads: a multiple of 32, at most
-// kMaxThreads.
+// lanes: 1, kLanes or kWarpLanes lanes a frame; threads: a multiple of
+// 32, at most kMaxThreads.
 int acs_regs_launch(const void* sym, long long sb, long long st,
                     int unpacked, const void* init, int B, int total,
                     int pad, int reset_at, int ckpt, void* regs, void* met,
                     int lanes, int threads, void* stream) {
-  if (!launch_ok(lanes, threads))
+  if (!launch_ok(lanes, threads) &&
+      !(lanes == kWarpLanes && threads_ok(threads)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* y = static_cast<const int32_t*>(sym);
@@ -116,8 +143,11 @@ int acs_regs_launch(const void* sym, long long sb, long long st,
       y, sb, st, i, B, total, pad, reset_at, ckpt, r, m)
   if (lanes == 1) {
     if (unpacked) VT_REGS_CASE(1, true); else VT_REGS_CASE(1, false);
-  } else {
+  } else if (lanes == kLanes) {
     if (unpacked) VT_REGS_CASE(kLanes, true); else VT_REGS_CASE(kLanes, false);
+  } else {
+    if (unpacked) VT_REGS_CASE(kWarpLanes, true);
+    else VT_REGS_CASE(kWarpLanes, false);
   }
 #undef VT_REGS_CASE
   return static_cast<int>(cudaGetLastError());

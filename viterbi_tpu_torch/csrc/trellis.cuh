@@ -22,6 +22,10 @@
 // register index is a compile-time constant and the butterfly permutation
 // is register renaming. Three divides six, so a six-step window of the
 // kernels (the deferred register shift of kernel A) ends at phase 0.
+//
+// Kernel A's warp-wide form (kWarpLanes lanes a frame) has a schedule of
+// its own, warp_state below: lane l holds butterfly l, old states l and
+// l + 32, and every step is followed by an exchange.
 
 #pragma once
 
@@ -37,6 +41,9 @@ constexpr int kStates = 64;
 // step to a quarter (PERF.md has the card's numbers for 1, 2 and 4).
 constexpr int kLanes = 4;
 constexpr int kPhases = 3;       // steps between two exchanges
+// Lanes of a warp that share one frame in kernel A's warp-wide form, the
+// form of the smallest batches (acs_regs.cu).
+constexpr int kWarpLanes = 32;
 constexpr int kMaxThreads = 128;  // threads of a block, whole warps
 constexpr unsigned kFullWarp = 0xffffffffu;
 
@@ -88,6 +95,47 @@ constexpr bool schedule_ok(int L) {
 }
 static_assert(schedule_ok(1) && schedule_ok(2) && schedule_ok(4),
               "lane schedule");
+
+// The warp-wide schedule. Slot i of lane l holds state
+// l | ((i ^ l) & 1) << 5: butterfly l's low predecessor l in slot l & 1.
+// After a step, slot i of lane l takes, by the i-th shuffle, the value
+// lane warp_source(l, i) sends in it: new state 2 * src + u of that lane's
+// butterfly with u = warp_sent(src, i), which is the state slot i holds.
+__host__ __device__ constexpr int warp_state(int l, int i) {
+  return l | (((i ^ l) & 1) << 5);
+}
+__host__ __device__ constexpr int warp_source(int l, int i) {
+  return (l >> 1) | (((i ^ l) & 1) << 4);
+}
+// The new state of its butterfly, 2 * l + u (u returned), that lane l
+// sends in the i-th shuffle.
+__host__ __device__ constexpr int warp_sent(int l, int i) {
+  return ((l >> 4) ^ i) & 1;
+}
+// Whether slot 0 of lane l takes the complement of the low predecessor's
+// metric into the state the lane sends first: slot 0 holds the low
+// predecessor (even l) and that state is 2 * l + 1, or the high one (odd
+// l) and it is 2 * l.
+__host__ __device__ constexpr bool warp_complement(int l) {
+  return ((l ^ (l >> 4)) & 1) != 0;
+}
+
+constexpr bool warp_schedule_ok() {
+  bool seen[kStates] = {};
+  for (int l = 0; l < kWarpLanes; ++l)
+    for (int i = 0; i < 2; ++i) {
+      const int s = warp_state(l, i);
+      if (s % 32 != l || seen[s]) return false;   // butterfly l, once
+      seen[s] = true;
+      const int src = warp_source(l, i);
+      if ((2 * src + warp_sent(src, i)) % kStates != s) return false;
+      if (warp_complement(l) !=
+          ((warp_state(l, 0) >= 32) != (warp_sent(l, 0) == 1)))
+        return false;
+    }
+  return true;
+}
+static_assert(warp_schedule_ok(), "warp-wide schedule");
 static_assert(6 % kPhases == 0, "a six-step window must end at phase 0");
 static_assert(kMaxThreads % 32 == 0 && 32 % kLanes == 0,
               "a frame's lanes lie in one warp");
@@ -105,14 +153,18 @@ __host__ __device__ constexpr int pattern(int b) {
          parity7((b << 1) & 83);
 }
 
-// The polarity of butterfly b as a word over the step's four symbols:
-// byte q is 255 where symbol q is complemented. A lane XORs the word of
+// Polarity pattern q as a word over the step's four symbols: byte q is
+// 255 where symbol q is complemented.
+__host__ __device__ constexpr uint32_t pattern_word(int q) {
+  return ((q & 4) ? 0xff0000ffu : 0u) | ((q & 2) ? 0x0000ff00u : 0u) |
+         ((q & 1) ? 0x00ff0000u : 0u);
+}
+
+// The polarity of butterfly b as such a word. A lane XORs the word of
 // its own bits of b into the symbols and then indexes the eight branch
 // metrics by the pattern of the bits its slot holds.
 __host__ __device__ constexpr uint32_t polarity_word(int b) {
-  return ((pattern(b) & 4) ? 0xff0000ffu : 0u) |
-         ((pattern(b) & 2) ? 0x0000ff00u : 0u) |
-         ((pattern(b) & 1) ? 0x00ff0000u : 0u);
+  return pattern_word(pattern(b));
 }
 
 constexpr bool pattern_linear() {
@@ -148,10 +200,14 @@ inline unsigned blocks_for(int B, int threads) {
       (static_cast<long long>(B) * L + threads - 1) / threads);
 }
 
+// Threads a block a launch takes: whole warps, at most kMaxThreads.
+inline bool threads_ok(int threads) {
+  return threads > 0 && threads <= kMaxThreads && threads % 32 == 0;
+}
+
 // What a launch takes: one lane a frame or kLanes, whole warps a block.
 inline bool launch_ok(int lanes, int threads) {
-  return (lanes == 1 || lanes == kLanes) && threads > 0 &&
-         threads <= kMaxThreads && threads % 32 == 0;
+  return (lanes == 1 || lanes == kLanes) && threads_ok(threads);
 }
 
 __device__ __forceinline__ int avg(int a, int b) { return (a + b + 1) >> 1; }
@@ -166,6 +222,14 @@ __device__ __forceinline__ uint32_t load_symbols(
   const uint32_t lo = __byte_perm(__ldg(p), __ldg(p + 1), 0x0040);
   const uint32_t hi = __byte_perm(__ldg(p + 2), __ldg(p + 3), 0x0040);
   return __byte_perm(lo, hi, 0x5410);
+}
+
+// The branch metric of pattern 0 from a step's symbol word w; XOR-ed with
+// pattern_word(q) first, the metric of pattern q.
+__device__ __forceinline__ int branch_metric(uint32_t w) {
+  const int s0 = w & 255, s1 = (w >> 8) & 255, s2 = (w >> 16) & 255,
+            s3 = w >> 24;
+  return avg(avg(s0, s1), avg(s2, s3)) >> 2;
 }
 
 // The eight branch metrics of one step from its symbol word w, into which

@@ -203,10 +203,12 @@ def decode_audio_superframes(symbols, bitrate_kbps: int,
         flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
         with calllog.span("viterbi") as sp:
             n0 = counts.total() if sp else 0
+            forms = counts.regs_forms() if sp else None
             frame_bytes = decode_frames(flat, cfg.framebits, kernels,
                                         packed=layout)
             if sp:
-                sp.count(launches=counts.total() - n0)
+                sp.count(launches=counts.total() - n0,
+                         **counts.acs_form(forms))
         sf = bytes_to_superframes(
             frame_bytes.reshape(B, SUPERFRAME_FRAMES, cfg.frame_bytes), cfg)
         with calllog.span("rs") as sp:

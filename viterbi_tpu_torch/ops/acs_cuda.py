@@ -38,9 +38,11 @@ largest batches. ``LANES`` = 4 neighbouring lanes of a warp a frame, 16
 states each, put four times the warps on the schedulers and a quarter of
 the instructions in a thread, at 1.6 to 1.8 times the instructions a
 frame (every lane computes the branch metrics, and the states change
-lanes): the form for everything below, down to one frame. The lane of a
-state follows a schedule (``lane_of``, ``slot_of``, ``state_of``, the
-mirrors of the ``constexpr`` helpers in ``csrc/trellis.cuh``): at phase p
+lanes): the form for everything below, down to one frame for kernel C
+and to ``REGS_WARP_FRAMES`` for kernel A (below, its third form). The
+lane of a state follows a schedule (``lane_of``, ``slot_of``,
+``state_of``, the mirrors of the ``constexpr`` helpers in
+``csrc/trellis.cuh``): at phase p
 the lane is named by the state's bits [p, p + log2 LANES), a step takes
 phase p to p + 1 without traffic between lanes, and after ``PHASES`` = 3
 steps one exchange through shared memory brings every state back to
@@ -49,6 +51,21 @@ into the symbols (``polarity_word``) and indexes the eight branch metrics
 by the rest. In both forms kernel A shifts its registers once a six-step
 window (``register_select``, ``register_shift_in``) instead of once a
 step.
+
+Kernel A has a third form for the smallest batches, where one frame's
+serial steps are the whole time: ``WARP_LANES`` = 32 lanes, a whole
+warp, a frame. Lane l holds butterfly l, old states l and l + 32, in the
+slot order of ``warp_state`` (an odd lane holds them swapped), and after
+every step each lane sends its two new states by two shuffles, each to
+the slot its reader keeps it in (``warp_source``, ``warp_sent``), so no
+select follows a shuffle; a lane picks its branch metrics for the swap
+(``warp_complement``) and breaks ties towards the high predecessor
+whichever slot holds it. The frame's lanes share out what the other forms
+compute in every lane: lane j holds the symbol word of step j of a
+six-step chunk, and lane j computes the branch metric of pattern j & 7
+for step j // 8 of a round of four steps (``warp_metric_lane``), which
+each lane's butterfly then fetches. The wrapper takes the form below
+``REGS_WARP_FRAMES``.
 """
 
 from __future__ import annotations
@@ -64,6 +81,8 @@ from . import traceback as tb
 DECODE_CKPT = 24   # checkpoint period of decode(); see the module docstring
 LANES = 4          # lanes of a warp that share a frame: kLanes of trellis.cuh
 PHASES = 3         # steps between two exchanges: kPhases of trellis.cuh
+WARP_LANES = 32    # kernel A's warp-wide form: kWarpLanes of trellis.cuh
+CHUNK = 6          # steps of a chunk of the warp-wide form: kChunk
 ACS_THREADS = 128  # threads per block of kernel A
 WORDS_THREADS = 128  # threads per block of kernel C
 #: Batches from which one lane a frame is the faster form of kernel A and
@@ -75,6 +94,15 @@ WORDS_THREADS = 128  # threads per block of kernel C
 #: 1.34 ms at 10240, 1.68 against 1.35 ms at 16384.
 REGS_ONE_LANE_FRAMES = 28672
 WORDS_ONE_LANE_FRAMES = 12288
+#: Batches below which kernel A takes its warp-wide form (``WARP_LANES``
+#: lanes a frame), set from the sweep of its three forms
+#: (``probes/kbatch.py``, ``sweep_small``; PERF.md): a frame's steps cost
+#: one warp 0.044-0.050 us up to 512 frames against 0.18 with four lanes,
+#: and the warp-wide form's time grows with its warps on the schedulers
+#: while four lanes stay near 0.70 ms at 3072 bits up to 4096 frames.
+#: 3072 bits: 0.6603 against 0.7018 ms at 3200 frames, 0.7929 against
+#: 0.7046 at 4096; 768 bits: 0.1724 against 0.1830 at 4096.
+REGS_WARP_FRAMES = 3584
 #: parts of kernel A's step that ``forward_regs_plain(ablate=)`` and the
 #: ablation probe's kernel can leave out
 ABLATIONS = frozenset({"noreg", "norenorm", "nosat", "nobm"})
@@ -100,6 +128,38 @@ def state_of(lanes: int, phase: int, lane: int, slot: int) -> int:
         | ((slot >> phase) << (phase + lb))
 
 
+def warp_state(lane: int, slot: int) -> int:
+    """The state in ``slot`` of ``lane`` in the warp-wide form: butterfly
+    ``lane``'s low predecessor in slot ``lane & 1``, its high one (lane +
+    32) in the other."""
+    return lane | (((slot ^ lane) & 1) << 5)
+
+
+def warp_source(lane: int, slot: int) -> int:
+    """The lane whose ``slot``-th shuffle ``slot`` of ``lane`` reads after
+    a step."""
+    return (lane >> 1) | (((slot ^ lane) & 1) << 4)
+
+
+def warp_sent(lane: int, slot: int) -> int:
+    """u of the new state 2 * lane + u that ``lane`` sends in its
+    ``slot``-th shuffle."""
+    return ((lane >> 4) ^ slot) & 1
+
+
+def warp_complement(lane: int) -> bool:
+    """Whether slot 0 of ``lane`` takes the complement of the low
+    predecessor's branch metric into the state the lane sends first."""
+    return bool((lane ^ (lane >> 4)) & 1)
+
+
+def warp_metric_lane(lane: int, step: int) -> int:
+    """The lane that computes, in a round of branch metrics of the
+    warp-wide form, the metric of ``lane``'s butterfly at step ``step`` of
+    the round: lane j computes pattern j & 7 of the round's step j // 8."""
+    return (step % (WARP_LANES // 8)) << 3 | pattern(lane)
+
+
 def pattern(b: int) -> int:
     """Polarity pattern of butterfly ``b``: bit 2 <- g0 (== g3), bit 1 <-
     g1, bit 0 <- g2; linear over the bits of ``b``."""
@@ -109,12 +169,16 @@ def pattern(b: int) -> int:
         | par((b << 1) & g[2])
 
 
-def polarity_word(b: int) -> int:
-    """The polarity of butterfly ``b`` over a step's packed symbols: byte
-    q is 255 where symbol q is complemented."""
-    q = pattern(b)
+def pattern_word(q: int) -> int:
+    """Polarity pattern ``q`` over a step's packed symbols: byte j is 255
+    where symbol j is complemented."""
     return (0xFF0000FF if q & 4 else 0) | (0x0000FF00 if q & 2 else 0) \
         | (0x00FF0000 if q & 1 else 0)
+
+
+def polarity_word(b: int) -> int:
+    """The polarity of butterfly ``b`` over a step's packed symbols."""
+    return pattern_word(pattern(b))
 
 
 def eight_branch_metrics(words: torch.Tensor, flip: int = 0) -> torch.Tensor:
@@ -255,13 +319,18 @@ def unpack_symbols(symbols: torch.Tensor, nsteps: int,
     return s.reshape(words.shape[0], C.RATE * nsteps)
 
 
-def _lanes(B: int, one_lane_frames: int, lanes: int | None) -> int:
-    """Lanes a frame for a batch of ``B``: the caller's, or ``LANES`` below
-    ``one_lane_frames`` and 1 from there on."""
+def _lanes(B: int, one_lane_frames: int, lanes: int | None,
+           warp_frames: int = 0) -> int:
+    """Lanes a frame for a batch of ``B``: the caller's, or ``WARP_LANES``
+    below ``warp_frames`` (kernel A's; a kernel without the warp-wide form
+    gives 0 and refuses it), ``LANES`` below ``one_lane_frames`` and 1
+    from there on."""
+    forms = (1, LANES, WARP_LANES) if warp_frames else (1, LANES)
     if lanes is None:
-        return 1 if B >= one_lane_frames else LANES
-    if lanes not in (1, LANES):
-        raise ValueError(f"lanes must be 1 or {LANES}, got {lanes}")
+        return WARP_LANES if B < warp_frames else \
+            1 if B >= one_lane_frames else LANES
+    if lanes not in forms:
+        raise ValueError(f"lanes must be one of {forms}, got {lanes}")
     return lanes
 
 
@@ -348,9 +417,11 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     32 survivor input bits as of step min((k+1)*ckpt, nsteps+front_pad).
 
     Kernel A on a CUDA tensor, ``forward_regs_plain`` on a CPU tensor;
-    ``forward_regs.launches`` counts the kernel's launches. ``lanes``
-    names the kernel's form, 1 or ``LANES`` lanes a frame; left out, the
-    batch decides (``REGS_ONE_LANE_FRAMES``). The results are the same.
+    ``forward_regs.launches`` counts the kernel's launches and
+    ``REGS_LAUNCHES`` each form's. ``lanes`` names the kernel's
+    form, 1, ``LANES`` or ``WARP_LANES`` lanes a frame; left out, the
+    batch decides (``REGS_WARP_FRAMES``, ``REGS_ONE_LANE_FRAMES``). The
+    results are the same.
     """
     if symbols.device.type == "cpu":
         return forward_regs_plain(symbols, nsteps, initial_metrics, ckpt,
@@ -362,7 +433,7 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     dev = symbols.device
     sym, sb, st, unpacked = _strided(symbols, packed)
     init = _init_metrics(initial_metrics, B, dev)
-    lanes = _lanes(B, REGS_ONE_LANE_FRAMES, lanes)
+    lanes = _lanes(B, REGS_ONE_LANE_FRAMES, lanes, REGS_WARP_FRAMES)
     regs = torch.empty((K, C.NUM_STATES, B), dtype=torch.int32, device=dev)
     metrics = torch.empty((B, C.NUM_STATES), dtype=torch.int32, device=dev)
     if B == 0:
@@ -372,10 +443,13 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
         front_pad, reset_at, ckpt, regs.data_ptr(), metrics.data_ptr(),
         lanes, ACS_THREADS)
     forward_regs.launches += 1
+    REGS_LAUNCHES[lanes] += 1
     return regs, metrics
 
 
 forward_regs.launches = 0
+#: kernel A's launches by form: lanes a frame -> launches
+REGS_LAUNCHES = dict.fromkeys((1, LANES, WARP_LANES), 0)
 
 
 def forward_plain(symbols: torch.Tensor, nsteps: int,

@@ -2,7 +2,8 @@
 codewords and superframes). Each wrapper adds one to its
 ``.launches`` where it launches its kernel, and nowhere else; a caller
 sets them to 0 before a path and reads them after it, to show that the
-path went through the kernels."""
+path went through the kernels. Kernel A also counts its launches by
+form (``acs_cuda.REGS_LAUNCHES``, by lanes a frame)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,23 @@ KERNELS = {"acs_regs": (acs_cuda, "forward_regs"),
 def zero_launches() -> None:
     for module, name in KERNELS.values():
         getattr(module, name).launches = 0
+    for lanes in acs_cuda.REGS_LAUNCHES:
+        acs_cuda.REGS_LAUNCHES[lanes] = 0
+
+
+def regs_forms() -> dict:
+    """Kernel A's launches by form so far: read before a stage and handed
+    to ``acs_form`` after it."""
+    return dict(acs_cuda.REGS_LAUNCHES)
+
+
+def acs_form(before: dict) -> dict:
+    """The counter ``acs_lanes`` of a stage: the lanes a frame of the form
+    kernel A launched in since ``before`` (``regs_forms()``), the widest
+    where it launched in several; no counter where it did not launch."""
+    lanes = [k for k, n in acs_cuda.REGS_LAUNCHES.items()
+             if n > before.get(k, 0)]
+    return {"acs_lanes": max(lanes)} if lanes else {}
 
 
 def launches() -> dict:

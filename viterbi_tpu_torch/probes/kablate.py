@@ -22,9 +22,10 @@ The TPU probe's switches and what stands for each here:
   step and placing the bit at a static position. Here the shift comes
   once a six-step window and goes with ``noreg``. No switch of its own.
 
-Every variant exists in both forms of kernel A (``lanes`` 1 or 4); the
-table is printed for the form kernel A takes at the probe's batch and,
-with ``--lanes``, for the other.
+Every variant exists in kernel A's one-lane and four-lane forms
+(``lanes`` 1 or 4; not in its warp-wide form); the table is printed for
+the one of the two kernel A takes at the probe's batch and, with
+``--lanes``, for the other.
 
 Usage: python -m viterbi_tpu_torch.probes.kablate [--framebits N]
        [--batch N] [--iters N] [--lanes 1|4]
@@ -75,8 +76,8 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
     ``ablate``: one of the sets in ``VARIANTS``. Returns what
     ``forward_regs`` returns: (registers int32[ceil(nsteps/ckpt), 64, B],
     metrics int32[B, 64]); with ``noreg`` the registers hold their seeds.
-    ``lanes`` as for ``forward_regs``: left out, the form kernel A takes
-    at this batch.
+    ``lanes`` 1 or ``acs_cuda.LANES``: left out, the one of those two
+    forms kernel A takes at this batch.
 
     Kernel E on a CUDA tensor, the plain version on a CPU tensor;
     ``forward_regs_ablated.launches`` counts the kernel's launches.

@@ -6,15 +6,19 @@ decode paths use, the block-size rows that tell several warps on one SM
 from several SMs, and the SM clock that ``nvidia-smi`` reads while kernel A
 runs at a small, a middle and a large batch (a card lowers its clock as
 more of it is busy, which the same kernel then shows as time).
+``sweep_small``: kernel A alone from one frame to a few thousand, at
+768 and 3072 bits, each form by name and the wrapper's choice, in a
+replayed CUDA graph: where its forms cross at small batches.
 ``sweep_walk``: kernel B (the checkpoint walk, ``traceback.tb_walk``) over
 the batch at several frame sizes, alone and with the byte assembly behind
 it (``traceback.chainback_regs_cuda``), on kernel A's checkpoints of noisy
 frames; where the wrapper takes ``segments`` (the lanes a frame), each
 form by itself too.
 
-Where the wrappers take ``lanes`` (the kernels' two forms, one lane a
-frame or several), the batch rows also time each form by itself: the
-wrapper's own choice by batch should follow the faster one.
+Where the wrappers take ``lanes`` (the kernels' forms, one lane a frame
+or several; kernel A also a whole warp a frame), the batch rows also time
+each form by itself: the wrapper's own choice by batch should follow the
+faster one.
 
 The wrappers' interface is the same in every version of the port, so the
 same script times another checkout of it: ``--root DIR`` imports
@@ -26,8 +30,8 @@ and compare two versions only within one run of the card (this one, then
 the other, then again). Without ``--root``:
 ``python -m viterbi_tpu_torch.probes.kbatch``.
 
-Usage: kbatch.py [--root DIR] [--what forward|walk|all] [--framebits N]
-                 [--iters N] [--json PATH]
+Usage: kbatch.py [--root DIR] [--what forward|small|walk|all]
+                 [--framebits N] [--iters N] [--json PATH]
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ CLOCK_BATCHES = (32, 1024, 16384)   # SM clock read under each of these loads
 CHAIN_BATCH = 10240     # frames of 2048 superframes: unpacked symbols
 MAIN_BATCH = 16384      # the main path's batch
 BLOCK_BATCH = 128       # four warps of one-frame threads, or 16 of lanes
+SMALL_BATCHES = (1, 2, 5, 8, 16, 40, 64, 128, 256, 512, 1024, 1536, 1600,
+                 2048, 2560, 3072, 3200, 4096)   # kernel A's small sweep
+SMALL_FRAMEBITS = (768, 3072)
 WALK_FRAMEBITS = (3072, 192, 9216)   # kernel B's sweep: K = 129, 9, 385
 WALK_SEGMENTS = (1, 4, 8, 16, 32)    # kernel B's forms, timed by name
 EBN0_DB = 3.0           # the noisy frames of kernel B's sweep
@@ -103,21 +110,22 @@ def sweep(acs_cuda, framebits: int = 3072, iters: int = 5,
                              dtype=torch.int64, generator=gen) \
             .to(torch.int32)
 
-    def both(syms, packed, **kw):
-        a = _median_ms(torch, lambda: acs_cuda.forward_regs(
-            syms, nsteps, ckpt=ck, packed=packed, **kw), iters)
-        c = _median_ms(torch, lambda: acs_cuda.forward(
-            syms, nsteps, packed=packed, **kw), iters)
-        return {"A": a, "C": c}
+    def both(syms, packed, c=True, **kw):
+        row = {"A": _median_ms(torch, lambda: acs_cuda.forward_regs(
+            syms, nsteps, ckpt=ck, packed=packed, **kw), iters)}
+        if c:
+            row["C"] = _median_ms(torch, lambda: acs_cuda.forward(
+                syms, nsteps, packed=packed, **kw), iters)
+        return row
 
-    forms = (1, acs_cuda.LANES) if "lanes" in inspect.signature(
-        acs_cuda.forward_regs).parameters else ()
+    forms = regs_forms(acs_cuda)
     out = {"batch": {}, "layouts": {}, "blocks": {}}
     for batch in batches:
         w = words(batch)
         row = both(w, "bt")
         for lanes in forms:
-            form = both(w, "bt", lanes=lanes)
+            # kernel C has no warp-wide form
+            form = both(w, "bt", c=lanes in (1, acs_cuda.LANES), lanes=lanes)
             row.update({f"{k}, {lanes} lane(s)": v for k, v in form.items()})
         out["batch"][batch] = row
         del w
@@ -154,6 +162,58 @@ def sweep(acs_cuda, framebits: int = 3072, iters: int = 5,
         reads = [_sm_clock_mhz() for _ in range(3)]
         torch.cuda.synchronize()
         out["clock_mhz"][batch] = statistics.median(reads)
+    return out
+
+
+def regs_forms(acs_cuda) -> tuple:
+    """Kernel A's forms by lanes a frame, where its wrapper names them."""
+    if "lanes" not in inspect.signature(acs_cuda.forward_regs).parameters:
+        return ()
+    return (1, acs_cuda.LANES, *((acs_cuda.WARP_LANES,)
+                                 if hasattr(acs_cuda, "WARP_LANES") else ()))
+
+
+def sweep_small(acs_cuda, framebits=SMALL_FRAMEBITS,
+                batches=SMALL_BATCHES) -> dict:
+    """Kernel A's time in ms and in us a trellis step, in a replayed CUDA
+    graph, at each batch: the wrapper's choice ("A") and each form by name
+    ("A, n lane(s)"), on frame-major packed words at ckpt 24 (the bulk
+    calls' layout), and at one frame also on unpacked int32 symbols (the
+    live calls'); returns {framebits: {B: {...}}}."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("this probe times CUDA kernels and needs a CUDA "
+                           "device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ck = acs_cuda.DECODE_CKPT
+    gen = torch.Generator(device=dev).manual_seed(2)
+    forms = regs_forms(acs_cuda)
+    out = {}
+    for fb in framebits:
+        nsteps = fb + 6
+        out[fb] = {}
+        for batch in batches:
+            w = torch.randint(0, 2**31, (batch, nsteps), device=dev,
+                              dtype=torch.int64, generator=gen) \
+                .to(torch.int32)
+            graphed = max(5, min(100, (1 << 24) // (batch * nsteps)))
+            row = {}
+            for lanes in (None, *forms):
+                kw = {"lanes": lanes} if lanes else {}
+                ms = graph_ms(lambda: acs_cuda.forward_regs(
+                    w, nsteps, ckpt=ck, packed="bt", **kw), graphed)
+                key = f"A, {lanes} lane(s)" if lanes else "A"
+                row[key] = ms
+            if batch == 1:
+                unpacked = ((w[..., None].to(torch.int64)
+                             >> torch.arange(0, 32, 8, device=dev)) & 255) \
+                    .to(torch.int32).reshape(1, -1).contiguous()
+                row["A, unpacked"] = graph_ms(lambda: acs_cuda.forward_regs(
+                    unpacked, nsteps, ckpt=ck), graphed)
+            row["us_per_step"] = {k: 1e3 * v / nsteps for k, v in row.items()}
+            out[fb][batch] = row
+            del w
+        torch.cuda.empty_cache()
     return out
 
 
@@ -244,8 +304,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", help="import viterbi_tpu_torch from this "
                                    "checkout instead of the one on the path")
-    ap.add_argument("--what", choices=("forward", "walk", "all"),
-                    default="all", help="kernels A and C, kernel B, or both")
+    ap.add_argument("--what", choices=("forward", "small", "walk", "all"),
+                    default="all", help="kernels A and C, kernel A at small "
+                                        "batches, kernel B, or all three")
     ap.add_argument("--framebits", type=int, default=3072)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--json", help="also write the table to this file")
@@ -276,6 +337,15 @@ def main(argv=None) -> dict:
                                 if k not in ("A", "C"))
                 print(f"  {label:38s} A {row['A']:8.3f} ms   C "
                       f"{row['C']:8.3f} ms{forms}")
+    if args.what in ("small", "all"):
+        table["small"] = sweep_small(acs_cuda)
+        for fb, rows in table["small"].items():
+            for batch, row in rows.items():
+                print(f"  A framebits {fb:5d} B={batch:5d} ms: " + "   ".join(
+                    f"{k} {v:.4f}" for k, v in row.items()
+                    if k != "us_per_step")
+                    + "   us a step: " + "   ".join(
+                        f"{k} {v:.4f}" for k, v in row["us_per_step"].items()))
     if args.what in ("walk", "all"):
         constants = importlib.import_module("viterbi_tpu_torch.constants")
         table["walk"] = sweep_walk(acs_cuda, tb, constants,

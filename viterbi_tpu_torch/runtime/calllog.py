@@ -24,7 +24,8 @@ On, a span
   its start and end (``t0_ns``, ``t1_ns``), and the ``counters`` set on
   it by ``count()`` (``h2d_bytes``, ``staged_chunks``, ``d2h_bytes``,
   the depuncture stage's ``kept_bytes`` and ``mother_bytes``, the
-  kernels' ``launches``).
+  kernels' ``launches``, and on ``viterbi`` kernel A's form,
+  ``acs_lanes``: its lanes a frame, where it launched).
 
 **Call logging.** An export's root span is the logged call:
 ``Span.record(kind, symbols, **shape)`` gives it its kind and shape, and
