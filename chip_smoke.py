@@ -623,26 +623,23 @@ def words_path(syms, packed, out, expect8) -> dict:
     import viterbi_tpu_torch
     from viterbi_tpu_torch import golden
     from viterbi_tpu_torch.harness import channel
-    from viterbi_tpu_torch.ops import acs_cuda
-    from viterbi_tpu_torch.ops import traceback as tb
+    from viterbi_tpu_torch.ops import counts
     rung("cuda_words")
     bits64, syms64 = channel.make_frames(B_CHECK, 64, seed=64)
-    for counter in (acs_cuda.forward, tb.tb_words, acs_cuda.forward_regs,
-                    tb.tb_walk):
-        counter.launches = 0
+    counts.zero_launches()
     ret_u, out_u = viterbi_tpu_torch.deconvolve_batch(FB_MAIN, syms)
     t0 = time.perf_counter()
     ret_p, out_p = viterbi_tpu_torch.deconvolve_batch(FB_MAIN, packed,
                                                       packed=True)
     packed_s = time.perf_counter() - t0
     ret_64, out_64 = viterbi_tpu_torch.deconvolve_batch(64, syms64)
-    launches = {"acs_words": acs_cuda.forward.launches,
-                "tb_words": tb.tb_words.launches}
+    n = counts.launches()
+    launches = {k: n[k] for k in ("acs_words", "tb_words")}
     print(f"words path launches: {launches}")
     assert (ret_u, ret_p, ret_64) == (0, 0, 0), (ret_u, ret_p, ret_64)
     for name, count in launches.items():
         assert count > 0, f"the words path never launched {name}"
-    assert acs_cuda.forward_regs.launches == tb.tb_walk.launches == 0, \
+    assert n["acs_regs"] == n["tb_walk"] == 0, \
         "the words path ran the fused kernels"
     assert np.array_equal(out_u, out), "cuda_words (unpacked) != cuda_fused"
     assert np.array_equal(out_p, out), "cuda_words (packed) != cuda_fused"
@@ -1018,9 +1015,7 @@ def eep_path(dev, tag, check):
     from viterbi_tpu_torch.harness import channel
     from viterbi_tpu_torch.models import dab
     from viterbi_tpu_torch.models import puncture as P
-    from viterbi_tpu_torch.ops import acs_cuda
-    from viterbi_tpu_torch.ops import traceback as tb
-    from viterbi_tpu_torch.ops import depuncture as dp
+    from viterbi_tpu_torch.ops import counts
     fb = 24 * SF_KBPS
     launches = {"acs_regs": 0, "tb_walk": 0, "depuncture": 0}
     row = ((24, 24), (40, 16), (20, 9), (12, 5))     # 96 blocks = 128 kbit/s
@@ -1042,16 +1037,14 @@ def eep_path(dev, tag, check):
                                                    **kw)
             return dab.decode_profile_frames(received, prof, **kw)
 
-        acs_cuda.forward_regs.launches = 0
-        tb.tb_walk.launches = 0
-        dp.depuncture.launches = 0
+        counts.zero_launches()
         t0 = time.perf_counter()
         got = decode(rec)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches["acs_regs"] += acs_cuda.forward_regs.launches
-        launches["tb_walk"] += tb.tb_walk.launches
-        launches["depuncture"] += dp.depuncture.launches
+        n = counts.launches()
+        for k in launches:
+            launches[k] += n[k]
         assert got.is_cuda and got.shape == (B_CHECK, fb // 8)
         out = got.cpu().numpy()
         want = golden.deconvolve_many(fb, P.depuncture(rec[:4], mask))
@@ -1361,19 +1354,18 @@ def probes_phase(dev, tag, check, clock_hz) -> dict:
           f"({time.perf_counter() - t0:.1f} s)")
 
     # --- the probes' own entry points: their tables, launches counted
-    counters = {"kablate": kablate.forward_regs_ablated,
-                "kdtype_op": kdtype.elementwise,
-                "kdtype_chain": kdtype.chain, "kilp_streams": kilp.streams}
-    for fn in counters.values():
-        fn.launches = 0
+    counters = {k.name: k for k in (_build.KABLATE, _build.KDTYPE_OP,
+                                    _build.KDTYPE_CHAIN, _build.KILP_STREAMS)}
+    for kernel in counters.values():
+        kernel.zero()
     t0 = time.perf_counter()
     abl_ms = kablate.main(["--iters", "10"])
     abl_one_ms = kablate.main(["--iters", "10", "--lanes", "1"])
     dt = kdtype.main([])
     ilp = kilp.main([])
-    for name, fn in counters.items():
-        assert fn.launches > 0, f"the probes never launched {name}"
-        rows[name]["launches"] = fn.launches
+    for name, kernel in counters.items():
+        assert kernel.launches > 0, f"the probes never launched {name}"
+        rows[name]["launches"] = kernel.launches
     assert all(r["right"] for r in dt["ops"] + dt["chain"]), \
         "a kdtype row is wrong"
     # the loops are there: half the rounds take clearly less time (where
@@ -1423,9 +1415,8 @@ def tailbiting_phase(dev, tag, check) -> dict:
     torch.cuda.synchronize()
     launches = _record.launches()
     print(f"tail-biting launches: {launches}")
-    assert launches == {"acs_regs": 1, "acs_words": 1, "tb_walk": 1,
-                        "tb_words": 0, "rs_decode": 0,
-                        "rs_superframes": 0, "depuncture": 0}, launches
+    assert _record.only({"acs_regs": 1, "acs_words": 1, "tb_walk": 1},
+                        launches), launches
     assert out.device == syms.device and out.shape == (TB_FRAMES, fb // 8)
     nerr = channel.bit_errors_on_device(out, bits)
     assert nerr < TB_FRAMES * fb * 1e-3, f"{nerr} bit errors at 3 dB"
@@ -1629,7 +1620,7 @@ def ingest_phase(dev, tag, packed) -> dict:
     """Phase 16: the native host library and the pipelined feed
     (``tools.ingest``); returns the launches of the pipelined run."""
     import torch
-    from viterbi_tpu_torch.ops import acs_cuda
+    from viterbi_tpu_torch.ops import acs_cuda, counts
     from viterbi_tpu_torch.tools import ingest
     lib = ingest.native_checks()
     frames = packed[:RING_FRAMES].view(np.uint32)
@@ -1639,10 +1630,8 @@ def ingest_phase(dev, tag, packed) -> dict:
     secs, launches = ingest.turns(
         batches, lambda t: acs_cuda.decode(t, FB_MAIN, packed="bt"), dev,
         INGEST_ROUNDS)
-    assert launches == {"acs_regs": INGEST_BATCHES, "acs_words": 0,
-                        "tb_walk": INGEST_BATCHES, "tb_words": 0,
-                        "rs_decode": 0, "rs_superframes": 0,
-                        "depuncture": 0}, launches
+    assert counts.only({"acs_regs": INGEST_BATCHES,
+                        "tb_walk": INGEST_BATCHES}, launches), launches
     med = {k: statistics.median(v) for k, v in secs.items()}
     spread = {k: f"{med[k]:.1f} ({min(v):.1f}-{max(v):.1f})"
               for k, v in secs.items()}
@@ -2129,7 +2118,7 @@ def main() -> int:
     from viterbi_tpu_torch import constants as C
     from viterbi_tpu_torch import golden
     from viterbi_tpu_torch.harness import channel
-    from viterbi_tpu_torch.ops import _build, acs_cuda
+    from viterbi_tpu_torch.ops import _build, acs_cuda, counts
     from viterbi_tpu_torch.ops import traceback as tb
     from viterbi_tpu_torch.runtime import config as config_mod
     from viterbi_tpu_torch.runtime import dispatch
@@ -2311,16 +2300,14 @@ def main() -> int:
         ladder[kbps] = channel.make_frames(B_CHECK, lfb, seed=kbps)
     print(f"frames: {time.perf_counter() - t0:.1f} s on the host")
 
-    acs_cuda.forward_regs.launches = 0
-    tb.tb_walk.launches = 0
+    counts.zero_launches()
     ret, out = viterbi_tpu_torch.deconvolve_batch(FB_MAIN, packed,
                                                   packed=True)
     ladder_out = {kbps: viterbi_tpu_torch.deconvolve_batch(24 * kbps, s)
                   for kbps, (_, s) in ladder.items()}
     scalar_ret = viterbi_tpu_torch.deconvolve(FB_MAIN, syms[0])
     scalar_out = viterbi_tpu_torch.last_output()
-    launches = {"acs_regs": acs_cuda.forward_regs.launches,
-                "tb_walk": tb.tb_walk.launches}
+    launches = {k: counts.launches()[k] for k in ("acs_regs", "tb_walk")}
     print(f"main path launches: {launches}")
     assert ret == 0 and scalar_ret == 0, (ret, scalar_ret)
     for name, count in launches.items():

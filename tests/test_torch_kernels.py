@@ -17,6 +17,7 @@ from torch_rs_traps import TRAPS, trap_word
 from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import rs as rs_ops
 from viterbi_tpu_torch.ops import traceback as tb
@@ -80,10 +81,10 @@ def _hold_regs(dev, framebits, packed, front_pad, with_init, batch=B,
     r_p, m_p = acs_cuda.forward_regs_plain(syms, framebits + 6, **kw)
     # the form the batch selects, then each form by name
     for lanes in REGS_FORMS:
-        before = acs_cuda.forward_regs.launches
+        before = _build.ACS_REGS.launches
         r_k, m_k = acs_cuda.forward_regs(syms, framebits + 6, lanes=lanes,
                                          **kw)
-        assert acs_cuda.forward_regs.launches == before + 1
+        assert _build.ACS_REGS.launches == before + 1
         assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p), lanes
 
 
@@ -125,9 +126,9 @@ def _hold_every_form(syms, nsteps, **kw):
     assert want == (acs_cuda.WARP_LANES if B < acs_cuda.REGS_WARP_FRAMES
                     else acs_cuda.LANES)
     for lanes in REGS_FORMS:
-        before = dict(acs_cuda.REGS_LAUNCHES)
+        before = dict(_build.ACS_REGS.tally)
         r_k, m_k = acs_cuda.forward_regs(syms, nsteps, lanes=lanes, **kw)
-        took = [k for k, n in acs_cuda.REGS_LAUNCHES.items()
+        took = [k for k, n in _build.ACS_REGS.tally.items()
                 if n != before[k]]
         assert took == [lanes or want], (lanes, took)
         assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p), lanes
@@ -188,9 +189,9 @@ def test_tb_walk_kernel_matches_plain(cuda, anchored, interior):
            .to(cuda) if anchored else None)
     anck = (torch.from_numpy(rng.integers(0, K, B).astype(np.int32))
             .to(cuda) if interior else None)
-    before = tb.tb_walk.launches
+    before = _build.TB_WALK.launches
     got = tb.tb_walk(regs, 24, gap, anc, anck)
-    assert tb.tb_walk.launches == before + 1
+    assert _build.TB_WALK.launches == before + 1
     assert torch.equal(got, tb.tb_walk_plain(regs, 24, gap, anc, anck))
 
 
@@ -219,9 +220,9 @@ def _hold_walk(regs, ckpt, gap, anc, anck):
     for a, ak in ((None, None), (anc, None), (anc, anck)):
         want = tb.tb_walk_plain(regs, ckpt, gap, a, ak)
         for segments in WALK_FORMS:
-            before = tb.tb_walk.launches
+            before = _build.TB_WALK.launches
             got = tb.tb_walk(regs, ckpt, gap, a, ak, segments=segments)
-            assert tb.tb_walk.launches == before + 1
+            assert _build.TB_WALK.launches == before + 1
             assert torch.equal(got, want), segments
 
 
@@ -261,10 +262,10 @@ def test_tb_walk_kernel_forms_and_bytes_on_kernel_a_registers(
         want_rs = tb.tb_walk_plain(regs, ck, gap, a, ak)
         want = tb._regs_bytes(want_rs, framebits, ck, gap, tail, pad)
         for segments in WALK_FORMS:
-            before = tb.tb_walk.launches
+            before = _build.TB_WALK.launches
             rs, got = tb.tb_walk_bytes(regs, framebits, ck, gap, tail, pad,
                                        a, ak, segments=segments)
-            assert tb.tb_walk.launches == before + 1
+            assert _build.TB_WALK.launches == before + 1
             assert got.dtype == torch.uint8
             assert torch.equal(rs, want_rs) and torch.equal(got, want), \
                 segments
@@ -272,7 +273,6 @@ def test_tb_walk_kernel_forms_and_bytes_on_kernel_a_registers(
 
 def test_kernels_launch_on_the_callers_stream_and_refused_launches_raise(
         cuda):
-    from viterbi_tpu_torch.ops import _build
     rng = np.random.default_rng(8)
     regs = torch.from_numpy(rng.integers(-2**31, 2**31, (40, 64, 65))
                             .astype(np.int32)).to(cuda)
@@ -315,10 +315,10 @@ def _hold_words(dev, framebits, packed, with_init, batch=B):
     d_p, m_p = acs_cuda.forward_plain(syms, framebits + 6, init,
                                       packed=packed)
     for lanes in FORMS:
-        before = acs_cuda.forward.launches
+        before = _build.ACS_WORDS.launches
         d_k, m_k = acs_cuda.forward(syms, framebits + 6, init, packed=packed,
                                     lanes=lanes)
-        assert acs_cuda.forward.launches == before + 1
+        assert _build.ACS_WORDS.launches == before + 1
         assert torch.equal(d_k, d_p) and torch.equal(m_k, m_p), lanes
 
 
@@ -343,9 +343,9 @@ def test_tb_words_kernel_matches_plain(cuda, framebits):
         -2**31, 2**31, (framebits + 9, B, 2), dtype=np.int64)
         .astype(np.int32)).to(cuda)
     for words in (dec, noise):
-        before = tb.tb_words.launches
+        before = _build.TB_WORDS.launches
         got = tb.tb_words(words, framebits)
-        assert tb.tb_words.launches == before + 1
+        assert _build.TB_WORDS.launches == before + 1
         assert torch.equal(got, tb.tb_words_plain(words, framebits))
 
 
@@ -389,8 +389,8 @@ def test_superframe_chain_on_card_matches_plain_only_call(cuda, kbps):
     dsyms = torch.from_numpy(syms).to(cuda)
 
     def launches():
-        return (acs_cuda.forward_regs.launches, tb.tb_walk.launches,
-                rs_ops.rs_check_superframes.launches)
+        return (_build.ACS_REGS.launches, _build.TB_WALK.launches,
+                _build.RS_SUPERFRAMES.launches)
 
     before = launches()
     audio, errors = dab.decode_audio_superframes(dsyms, kbps)
@@ -425,11 +425,11 @@ def test_ablation_kernel_matches_plain(cuda, name, ablate, framebits,
                                                   ablate, ckpt=24,
                                                   packed=packed)
     for lanes in FORMS:
-        before = kablate.forward_regs_ablated.launches
+        before = _build.KABLATE.launches
         r_k, m_k = kablate.forward_regs_ablated(syms, framebits + 6, ablate,
                                                 ckpt=24, packed=packed,
                                                 lanes=lanes)
-        assert kablate.forward_regs_ablated.launches == before + 1
+        assert _build.KABLATE.launches == before + 1
         assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p), lanes
         if not ablate:      # nothing left out: kernel A itself, bit for bit
             r_a, m_a = acs_cuda.forward_regs(syms, framebits + 6, ckpt=24,
@@ -448,9 +448,9 @@ def test_narrow_op_kernel_matches_plain(cuda, dtype, op):
     x, y = (torch.from_numpy(rng.integers(lo, lo + (1 << bits),
                                           kdtype.OP_SHAPE)
                              .astype(np.int32)).to(cuda) for _ in range(2))
-    before = kdtype.elementwise.launches
+    before = _build.KDTYPE_OP.launches
     got = kdtype.elementwise(op, dtype, x, y)
-    assert kdtype.elementwise.launches == before + 1
+    assert _build.KDTYPE_OP.launches == before + 1
     assert torch.equal(got, kdtype.elementwise_plain(op, dtype, x, y))
 
 
@@ -489,9 +489,9 @@ def test_chain_kernel_matches_plain(cuda, dtype, top):
     kernel must wrap as the plain version does."""
     x = torch.from_numpy(np.random.default_rng(top).integers(
         0, top, (64, 256)).astype(np.int32)).to(cuda)
-    before = kdtype.chain.launches
+    before = _build.KDTYPE_CHAIN.launches
     got = kdtype.chain(x, 41, dtype)
-    assert kdtype.chain.launches == before + 1
+    assert _build.KDTYPE_CHAIN.launches == before + 1
     assert torch.equal(got, kdtype.chain_plain(x, 41, dtype))
 
 
@@ -501,9 +501,9 @@ def test_streams_kernel_matches_plain(cuda, nstreams, mode):
     x = torch.from_numpy(np.random.default_rng(nstreams).integers(
         -999, 999, kilp.SHAPE).astype(np.int32)).to(cuda)
     for c in (3, -2):
-        before = kilp.streams.launches
+        before = _build.KILP_STREAMS.launches
         got = kilp.streams(x, nstreams, mode, 25, c)
-        assert kilp.streams.launches == before + 1
+        assert _build.KILP_STREAMS.launches == before + 1
         assert torch.equal(got, kilp.streams_plain(x, nstreams, mode, 25, c))
 
 
@@ -512,9 +512,9 @@ def test_streams_kernel_matches_plain(cuda, nstreams, mode):
 def _hold_rs(blocks, want=None):
     """Kernel I on ``blocks`` (any view) against its plain version on the
     same tensor: one launch, bit for bit."""
-    before = rs_ops.rs_decode_blocks.launches
+    before = _build.RS_DECODE.launches
     got = rs_ops.rs_decode_blocks(blocks)
-    assert rs_ops.rs_decode_blocks.launches == before + 1
+    assert _build.RS_DECODE.launches == before + 1
     want = want or rs_ops.rs_decode_blocks_plain(blocks)
     for g, w in zip(got, want, strict=True):
         assert g.is_cuda and g.dtype == torch.int32
@@ -595,10 +595,10 @@ def test_rs_kernel_is_one_launch_and_the_superframe_check_follows(cuda):
     rs_ops.rs_decode_blocks(blocks)
     assert _common.count_launches(
         lambda: rs_ops.rs_decode_blocks(blocks)) <= 1
-    before = rs_ops.rs_check_superframes.launches
+    before = _build.RS_SUPERFRAMES.launches
     p = blocks[:16].T.reshape(-1).to(torch.uint8).contiguous()
     errors, out, n_ok = rs_ops.rs_check_superframe(p, 16)
-    assert rs_ops.rs_check_superframes.launches == before + 1
+    assert _build.RS_SUPERFRAMES.launches == before + 1
     assert _common.count_launches(
         lambda: rs_ops.rs_check_superframe(p, 16)) <= 1
     g_err, g_out = golden.rs_check_superframe(p.cpu().numpy(), 16)
@@ -624,11 +624,13 @@ def _hold_sf(sf, rs_dims, zero):
     against the plain version on the same tensor: one launch each."""
     want = rs_ops.rs_check_superframes_plain(sf, rs_dims,
                                              zero_after_fail=zero)
-    for entry in (rs_ops.rs_check_superframes,
-                  rsform.rs_check_superframes_table_synd):
-        before = entry.launches
+    for entry, kernel in ((rs_ops.rs_check_superframes,
+                           _build.RS_SUPERFRAMES),
+                          (rsform.rs_check_superframes_table_synd,
+                           _build.RS_TABLE_SUPERFRAMES)):
+        before = kernel.launches
         got = entry(sf, rs_dims, zero_after_fail=zero)
-        assert entry.launches == before + 1
+        assert kernel.launches == before + 1
         for g, w in zip(got, want, strict=True):
             assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w)
     return want
@@ -685,16 +687,16 @@ def test_rs_stage_and_export_are_one_launch_each(cuda):
     from viterbi_tpu_torch import api
     from viterbi_tpu_torch.models import dab
     sf = torch.from_numpy(_sf_batch(16, 64)).to(cuda)
-    before = rs_ops.rs_check_superframes.launches
+    before = _build.RS_SUPERFRAMES.launches
     dab.rs_superframes(sf, 16, True)
-    assert rs_ops.rs_check_superframes.launches == before + 1
+    assert _build.RS_SUPERFRAMES.launches == before + 1
     assert _common.count_launches(
         lambda: dab.rs_superframes(sf, 16, True)) == 1
     api.initialize(device=cuda)
     one = sf[3].cpu().numpy()
-    before = rs_ops.rs_check_superframes.launches
+    before = _build.RS_SUPERFRAMES.launches
     ret = api.rs_check_superframe(one, 0, 16)
-    assert rs_ops.rs_check_superframes.launches == before + 1
+    assert _build.RS_SUPERFRAMES.launches == before + 1
     assert ret == golden.rs_check_superframe(one, 16)[0]
     assert _common.count_launches(
         lambda: api.rs_check_superframe(one, 0, 16)) <= 3

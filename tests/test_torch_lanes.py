@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from viterbi_tpu_torch import constants as C
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs as acs_ops
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops.acs_cuda import (lane_of, pattern, pattern_word,
@@ -436,8 +437,8 @@ def test_kernel_a_takes_the_warp_wide_form_below_its_threshold():
     with pytest.raises(ValueError, match="lanes"):
         acs_cuda._lanes(1, acs_cuda.WORDS_ONE_LANE_FRAMES,
                         acs_cuda.WARP_LANES)
-    assert set(acs_cuda.REGS_LAUNCHES) == {1, acs_cuda.LANES,
-                                           acs_cuda.WARP_LANES}
+    assert set(_build.ACS_REGS.tally) == {1, acs_cuda.LANES,
+                                          acs_cuda.WARP_LANES}
 
 
 def test_the_batch_selects_the_form():

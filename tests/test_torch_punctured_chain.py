@@ -22,6 +22,7 @@ from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.models import dab
 from viterbi_tpu_torch.models import puncture as P
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import counts
 from viterbi_tpu_torch.ops import depuncture as dp
 from viterbi_tpu_torch.reference import punctured as R
@@ -245,11 +246,15 @@ def test_without_protection_the_chain_runs_the_same_operations(
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _counting(real):
+def _counting(real, kernel, monkeypatch):
+    """``real`` with each call counted as the launch path counts a launch
+    of ``kernel`` on a card; the kernel's tally is restored after the
+    test."""
+    monkeypatch.setattr(kernel, "tally", dict(kernel.tally))
+
     def wrapper(*args, **kwargs):
-        wrapper.launches += 1
+        kernel.tally[None] += 1
         return real(*args, **kwargs)
-    wrapper.launches = 0
     return wrapper
 
 
@@ -281,7 +286,8 @@ def test_a_profiler_sees_the_depuncture_stage_with_its_counters(
     assert stage.counters == {"kept_bytes": rec.nbytes,
                               "mother_bytes": mother, "launches": 0}
     calllog.spans(clear=True)
-    monkeypatch.setattr(dp, "depuncture", _counting(dp.depuncture))
+    monkeypatch.setattr(dp, "depuncture", _counting(
+        dp.depuncture, _build.DEPUNCTURE, monkeypatch))
     before = counts.total()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -326,9 +332,9 @@ def test_kernel_j_matches_its_plain_form_on_the_card(cuda, kbps, protection):
                                             dtype=np.int32)).to(cuda)
         for sym in (rec[:, :kept], rec[:, 5:].to(torch.uint8),
                     rec[:, :kept].contiguous()):
-            before = dp.depuncture.launches
+            before = _build.DEPUNCTURE.launches
             got = dp.depuncture(sym, prof)
-            assert dp.depuncture.launches == before + 1
+            assert _build.DEPUNCTURE.launches == before + 1
             want = dp.depuncture_plain(sym, prof)
             assert got.is_cuda and torch.equal(got, want), (n, sym.dtype)
 

@@ -17,6 +17,7 @@ from torch_ranks import cpu_mesh, on_card, thread_ranks
 
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import traceback as tb
 from viterbi_tpu_torch.parallel import distributed
@@ -233,13 +234,13 @@ def test_card_ring_equals_the_local_decoder(cuda, n_data, n_seq):
     data = torch.from_numpy(syms[:, :4 * stream_bits]).to(cuda)
     tail = torch.from_numpy(syms[:, 4 * stream_bits:]).to(cuda)
     want = TS.make_local_stream_decoder(stream_bits, n_seq)(data, tail)
-    a0, b0 = acs_cuda.forward_regs.launches, tb.tb_walk.launches
+    a0, b0 = _build.ACS_REGS.launches, _build.TB_WALK.launches
     got = thread_ranks(lambda r, n, st: TS.make_stream_decoder(
         on_card(r, n, st, n_data, n_seq), stream_bits)(data, tail),
         n_data * n_seq)
     ranks = n_data * n_seq
-    assert acs_cuda.forward_regs.launches - a0 == 2 * ranks
-    assert tb.tb_walk.launches - b0 == ranks
+    assert _build.ACS_REGS.launches - a0 == 2 * ranks
+    assert _build.TB_WALK.launches - b0 == ranks
     for out in got:
         assert out.is_cuda and torch.equal(out, want)
     plain = TS.make_local_stream_decoder(stream_bits, n_seq,

@@ -12,6 +12,7 @@ import torch
 
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import traceback as tb
 from viterbi_tpu_torch.parallel import StreamSession
@@ -212,13 +213,13 @@ def test_card_push_is_three_launches_and_matches_plain(cuda):
     sess = StreamSession(B)
     assert sess.use_kernels and sess.device.type == "cuda"
     outs, pushes = [], 0
-    a0, b0, c0 = (acs_cuda.forward_regs.launches, tb.tb_walk.launches,
-                  acs_cuda.forward.launches)
+    a0, b0, c0 = (_build.ACS_REGS.launches, _build.TB_WALK.launches,
+                  _build.ACS_WORDS.launches)
     for i in range(0, data.shape[1], 4 * framebits):
         outs.append(sess.push(data[:, i:i + 4 * framebits]))
         pushes += outs[-1].shape[1] > 0
-    assert (acs_cuda.forward_regs.launches - a0, tb.tb_walk.launches - b0,
-            acs_cuda.forward.launches - c0) == (2 * pushes, pushes, 0)
+    assert (_build.ACS_REGS.launches - a0, _build.TB_WALK.launches - b0,
+            _build.ACS_WORDS.launches - c0) == (2 * pushes, pushes, 0)
     outs.append(sess.flush(tail))
     got = np.concatenate(outs, axis=1)
     plain = StreamSession(B, use_kernels=False)

@@ -21,6 +21,7 @@ from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.models import dab
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import traceback as tb
 from viterbi_tpu_torch.parallel import batch, distributed, streaming
@@ -114,9 +115,8 @@ def test_decode_sharded_takes_the_dispatchers_rung(monkeypatch, n, rung,
 
 
 def api_block(framebits, block):
-    from viterbi_tpu_torch import api
-    return api._block(framebits,
-                      block or dispatch.state().config.traceback_block)
+    return tb.block_for(framebits,
+                        block or dispatch.state().config.traceback_block)
 
 
 def test_decode_sharded_over_the_data_axis_of_a_two_axis_mesh():
@@ -237,13 +237,13 @@ def test_card_decode_sharded_launches_a_and_b_in_every_rank(cuda, n):
     _, syms = channel.make_frames(64 * n, 3072, seed=n)
     want = viterbi_tpu_torch.deconvolve_batch(3072, syms)[1]
 
-    a0, b0 = acs_cuda.forward_regs.launches, tb.tb_walk.launches
+    a0, b0 = _build.ACS_REGS.launches, _build.TB_WALK.launches
     got = thread_ranks(lambda r, world, st: batch.decode_sharded(
         syms, 3072, on_card(r, world, st, n, 1)), n)
     torch.cuda.synchronize()
     # one launch of each kernel a rank (the counters are the process's)
-    assert acs_cuda.forward_regs.launches - a0 == n
-    assert tb.tb_walk.launches - b0 == n
+    assert _build.ACS_REGS.launches - a0 == n
+    assert _build.TB_WALK.launches - b0 == n
     for out in got:
         assert out.is_cuda and np.array_equal(out.cpu().numpy(), want)
 
@@ -252,9 +252,9 @@ def test_card_decode_sharded_launches_a_and_b_in_every_rank(cuda, n):
 def test_card_ensemble_equals_the_one_process_chain(cuda):
     _, syms = _superframes(np.random.default_rng(5), [0, 9, 3, 0])
     want_a, want_e = dab.decode_audio_superframes(syms, 32)
-    a0 = acs_cuda.forward_regs.launches
+    a0 = _build.ACS_REGS.launches
     got = thread_ranks(lambda r, n, st: dab.decode_ensemble_sharded(
         syms, 32, on_card(r, n, st, 2, 1)), 2)
-    assert acs_cuda.forward_regs.launches - a0 == 2
+    assert _build.ACS_REGS.launches - a0 == 2
     for a, e in got:
         assert a.is_cuda and torch.equal(a, want_a) and torch.equal(e, want_e)

@@ -15,6 +15,7 @@ from hypothesis import strategies as st
 
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import traceback as tb
 from viterbi_tpu_torch.parallel import streaming as TS
@@ -293,10 +294,10 @@ def test_card_kernel_form_matches_plain(cuda, blk, n_blocks):
     data, tail, syms = _stream(3, stream_bits, seed=blk)
     d, t = torch.from_numpy(data).to(cuda), torch.from_numpy(tail).to(cuda)
     dec = TS.make_local_stream_decoder(stream_bits, n_blocks)
-    a0, b0 = acs_cuda.forward_regs.launches, tb.tb_walk.launches
+    a0, b0 = _build.ACS_REGS.launches, _build.TB_WALK.launches
     got = dec(d, t)
-    assert (acs_cuda.forward_regs.launches - a0,
-            tb.tb_walk.launches - b0) == (2, 1)
+    assert (_build.ACS_REGS.launches - a0,
+            _build.TB_WALK.launches - b0) == (2, 1)
     plain = TS.make_local_stream_decoder(stream_bits, n_blocks,
                                          use_kernels=False)(d, t)
     assert torch.equal(got, plain)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import viterbi_tpu_torch.golden as TG
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs, acs_cuda
 from viterbi_tpu_torch.ops import tailbiting as TT
 from viterbi_tpu_torch.ops import traceback as tb
@@ -209,12 +210,12 @@ def test_card_kernel_form_matches_plain(cuda, framebits, wrap):
     syms, want = _frames(11, 4, framebits, wrap, min(40, framebits))
     syms = np.concatenate([syms, _tie_frames(60, framebits)])
     t = torch.from_numpy(syms).to(cuda)
-    launches = (acs_cuda.forward.launches, acs_cuda.forward_regs.launches,
-                tb.tb_walk.launches)
+    launches = (_build.ACS_WORDS.launches, _build.ACS_REGS.launches,
+                _build.TB_WALK.launches)
     got = TT.decode_tailbiting(t, framebits, wrap)
-    assert (acs_cuda.forward.launches - launches[0],
-            acs_cuda.forward_regs.launches - launches[1],
-            tb.tb_walk.launches - launches[2]) == (1, 1, 1)
+    assert (_build.ACS_WORDS.launches - launches[0],
+            _build.ACS_REGS.launches - launches[1],
+            _build.TB_WALK.launches - launches[2]) == (1, 1, 1)
     plain = TT.decode_tailbiting(t, framebits, wrap, use_kernels=False)
     assert torch.equal(got, plain)
     assert np.array_equal(got[:4].cpu().numpy(), want)

@@ -19,7 +19,10 @@ from viterbi_tpu_torch import constants as C
 from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.models import dab
-from viterbi_tpu_torch.ops import acs_cuda, counts
+from viterbi_tpu_torch.ops import _build, acs_cuda, counts
+from viterbi_tpu_torch.ops import depuncture as dp
+from viterbi_tpu_torch.ops import rs as rs_ops
+from viterbi_tpu_torch.ops import traceback as tb
 from viterbi_tpu_torch.runtime import calllog, dispatch
 from viterbi_tpu_torch.runtime import config as config_mod
 
@@ -36,6 +39,14 @@ TREES = {
                             ["ingest", "rs", "readback"]),
     "chain": ("chain", ["ingest", "viterbi", "rs"]),
 }
+#: each kernel of ``counts.KERNELS`` by its wrapper (module, name), which
+#: on the CPU runs the plain version and launches nothing
+WRAPPERS = {"acs_regs": (acs_cuda, "forward_regs"),
+            "acs_words": (acs_cuda, "forward"),
+            "tb_walk": (tb, "tb_walk"), "tb_words": (tb, "tb_words"),
+            "rs_decode": (rs_ops, "rs_decode_blocks"),
+            "rs_superframes": (rs_ops, "rs_check_superframes"),
+            "depuncture": (dp, "depuncture")}
 
 
 @pytest.fixture(autouse=True)
@@ -129,12 +140,25 @@ def test_a_profiler_sees_each_call_as_one_tree(entry, tmp_path):
     _one_tree(calllog.spans(), entry)
 
 
-def _counting(real):
+def _counting(monkeypatch, name, form=None):
+    """Count each call of kernel ``name``'s wrapper as the launch path
+    counts a launch on a card, in ``form`` (the wrapper runs its plain
+    version here); the kernel's tally is restored after the test."""
+    module, attr = WRAPPERS[name]
+    real, kernel = getattr(module, attr), counts.KERNELS[name]
+    monkeypatch.setattr(kernel, "tally", dict(kernel.tally))
+
     def wrapper(*args, **kwargs):
-        wrapper.launches += 1
+        kernel.tally[form] += 1
         return real(*args, **kwargs)
-    wrapper.launches = 0
-    return wrapper
+    monkeypatch.setattr(module, attr, wrapper)
+
+
+def _count_all(monkeypatch, lanes=acs_cuda.WARP_LANES):
+    """Every kernel counted as on a card, kernel A in the form ``lanes``
+    (a card's below ``REGS_WARP_FRAMES`` frames, as every call here)."""
+    for name in counts.KERNELS:
+        _counting(monkeypatch, name, lanes if name == "acs_regs" else None)
 
 
 @pytest.mark.parametrize("entry", list(TREES))
@@ -143,8 +167,7 @@ def test_counters_match_the_bytes_and_the_launch_counts(entry, monkeypatch):
     plain version here) and the fused rung selected, the stages' launches
     add up to ``ops.counts`` over the call; ``h2d_bytes`` is the input
     handed over, through the direct path (no chunk staged)."""
-    for module, name in counts.KERNELS.values():
-        monkeypatch.setattr(module, name, _counting(getattr(module, name)))
+    _count_all(monkeypatch)
     monkeypatch.setattr(dispatch.state(), "variant",
                         dispatch.VARIANTS.index("cuda_fused"))
     before = counts.total()
@@ -159,8 +182,9 @@ def test_counters_match_the_bytes_and_the_launch_counts(entry, monkeypatch):
         == launched
     if entry.startswith("deconvolve"):
         # kernel A's wrapper; kernel B's walk with the bytes
-        # (``tb_walk_bytes``) adds to ``tb_walk.launches`` only on a card
-        assert stages["viterbi"].counters == {"launches": 1}
+        # (``tb_walk_bytes``) counts as ``tb_walk`` only on a card
+        assert stages["viterbi"].counters == {
+            "launches": 1, "acs_lanes": acs_cuda.WARP_LANES}
         rows = 1 if entry == "deconvolve" else 3
         assert stages["readback"].counters == {
             "d2h_bytes": rows * FRAMEBITS // 8}
@@ -170,33 +194,71 @@ def test_counters_match_the_bytes_and_the_launch_counts(entry, monkeypatch):
 
 @pytest.mark.parametrize("entry,lanes", [("deconvolve", 32),
                                          ("deconvolve_batch", 4),
-                                         ("deconvolve_batch", 1)])
+                                         ("deconvolve_batch", 1),
+                                         ("chain", 32), ("chain", 4)])
 def test_viterbi_span_names_kernel_a_form(entry, lanes, monkeypatch):
     """The viterbi stage's ``acs_lanes`` is the form kernel A launched in
     (here a wrapper that counts a launch in the form named, as a card's
     would, and runs the plain version), and the per-form tally moved by
-    the stage's one launch; ``zero_launches`` clears the tally."""
-    real = acs_cuda.forward_regs
-
-    def launched(*args, **kwargs):
-        launched.launches += 1
-        acs_cuda.REGS_LAUNCHES[lanes] += 1
-        return real(*args, **kwargs)
-    launched.launches = 0
-    monkeypatch.setattr(acs_cuda, "forward_regs", launched)
+    the stage's one launch; the RS stage, where kernel A does not
+    launch, names no form; ``zero_launches`` clears the tally. The chain
+    takes its kernel path, as on a card."""
+    _counting(monkeypatch, "acs_regs", lanes)
     monkeypatch.setattr(dispatch.state(), "variant",
                         dispatch.VARIANTS.index("cuda_fused"))
-    before = counts.regs_forms()
+    monkeypatch.setattr(dab, "want_kernels", lambda *args: True)
+    tally = _build.ACS_REGS.tally
+    before = dict(tally)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         _call(entry)
     _, stages = _one_tree(calllog.spans(), entry)
-    assert stages["viterbi"].counters["acs_lanes"] == lanes
-    moved = {k: n - before[k] for k, n in counts.regs_forms().items()}
+    assert stages["viterbi"].counters == {"launches": 1, "acs_lanes": lanes}
+    if "rs" in stages:
+        assert stages["rs"].counters == {"launches": 0}
+    moved = {k: n - before[k] for k, n in tally.items()}
     assert moved == {k: int(k == lanes) for k in before}
-    assert counts.acs_form(counts.regs_forms()) == {}
     counts.zero_launches()
-    assert set(counts.regs_forms().values()) == {0}
+    assert set(tally.values()) == {0}
+
+
+@pytest.mark.parametrize("entry", list(TREES))
+def test_tracing_off_a_stage_counts_nothing(entry, monkeypatch):
+    """Off, a stage is the span's shared no-op object: it reads no count
+    (``counts.total`` and kernel A's tally are never read) and leaves no
+    record, with every kernel counted as on a card."""
+    _count_all(monkeypatch)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a count was read with tracing off")
+    monkeypatch.setattr(counts, "total", refuse)
+    monkeypatch.setattr(counts, "_Stage", refuse)
+    with counts.stage("viterbi") as sp:
+        assert sp is calllog.span("viterbi") and not sp
+    _call(entry)
+    assert calllog.spans() == []
+
+
+@pytest.mark.parametrize("stray", list(counts.KERNELS))
+def test_only_holds_every_kernel_to_its_count(stray, monkeypatch):
+    """``counts.only``: exactly the named launches, and none of any kernel
+    not named; a stray launch of ``stray`` fails every check that does
+    not name it, and a name no kernel has raises."""
+    for kernel in counts.KERNELS.values():
+        monkeypatch.setattr(kernel, "tally", dict(kernel.tally))
+    counts.zero_launches()
+    assert counts.only({}) and counts.only({stray: 0})
+    kernel = counts.KERNELS[stray]
+    kernel.tally[next(iter(kernel.tally))] += 1
+    assert counts.only({stray: 1})
+    assert not counts.only({})
+    assert not counts.only({stray: 2})
+    others = [k for k in counts.KERNELS if k != stray]
+    assert not counts.only({k: 1 for k in others})
+    assert not counts.only({stray: 1, others[0]: 1})
+    assert counts.only({stray: 1, others[0]: 0}, counts.launches())
+    with pytest.raises(ValueError, match="no kernel named"):
+        counts.only({"kernel_z": 0})
 
 
 def _refuse_profiler_spans(monkeypatch):

@@ -15,6 +15,7 @@ from viterbi_tpu.ops import acs as jax_acs
 from viterbi_tpu.ops import acs_pallas
 from viterbi_tpu.ops import traceback as jax_tb
 from viterbi_tpu_torch import golden
+from viterbi_tpu_torch.ops import _build
 from viterbi_tpu_torch.ops import acs_cuda
 from viterbi_tpu_torch.ops import traceback as tb
 
@@ -61,10 +62,10 @@ def test_forward_on_cpu_is_the_plain_version():
     nothing."""
     syms = np.random.default_rng(3).integers(0, 256, (4, 4 * 54),
                                              dtype=np.int32)
-    before = acs_cuda.forward.launches
+    before = _build.ACS_WORDS.launches
     d, m = acs_cuda.forward(torch.from_numpy(syms), 54)
     d_p, m_p = acs_cuda.forward_plain(torch.from_numpy(syms), 54)
-    assert acs_cuda.forward.launches == before
+    assert _build.ACS_WORDS.launches == before
     assert torch.equal(d, d_p) and torch.equal(m, m_p)
 
 
@@ -91,9 +92,9 @@ def test_word_walk_matches_pallas(framebits, batch):
     want = np.asarray(jax_tb.chainback_words_pallas(
         jnp.asarray(dec), framebits, interpret=True))
     dec_t = torch.from_numpy(dec.view(np.int32))
-    before = tb.tb_words.launches
+    before = _build.TB_WORDS.launches
     got = tb.chainback_words_cuda(dec_t, framebits)
-    assert tb.tb_words.launches == before     # the plain version on the CPU
+    assert _build.TB_WORDS.launches == before   # the plain version on the CPU
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(got.numpy(), golden.deconvolve_many(framebits,
                                                               syms))

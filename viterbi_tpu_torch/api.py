@@ -149,16 +149,6 @@ def _decode_arbitrary(syms: torch.Tensor, framebits: int) -> torch.Tensor:
     return tb.chainback_scan(decisions[:nsteps], framebits)
 
 
-def _block(framebits: int, block: int) -> int:
-    """The blocked traceback's block: ``block`` (config key
-    ``traceback_block``) where it divides framebits, else the largest
-    of 64, 48, 32, 24, 16, 8, 4, 2, 1 that does."""
-    if framebits % block == 0:
-        return block
-    return next(b for b in (64, 48, 32, 24, 16, 8, 4, 2, 1)
-                if framebits % b == 0)
-
-
 def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
                    packed: bool = False,
                    block: int | None = None) -> torch.Tensor:
@@ -179,7 +169,7 @@ def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
         return acs_cuda.decode(syms, framebits, packed=layout)
     st = dispatch.state()
     nsteps = framebits + C.TAIL_BITS
-    block = _block(framebits, block or st.config.traceback_block)
+    block = tb.block_for(framebits, block or st.config.traceback_block)
     # the torch_* rungs are traceback strategies: their forward pass is the
     # decisions kernel wherever the kernels are built. On a CPU tensor
     # acs_cuda.forward is its plain version, which takes the same layouts.
@@ -216,13 +206,8 @@ def _decode_batch(symbols: np.ndarray, framebits: int,
         syms = placement.ingest(symbols, st.device)
     else:
         syms, packed = placement.ingest_words(symbols, st.device)
-    with calllog.span("viterbi") as sp:
-        n0 = counts.total() if sp else 0
-        forms = counts.regs_forms() if sp else None
+    with counts.stage("viterbi"):
         out = _decode_tensor(syms, framebits, variant, packed)
-        if sp:
-            sp.count(launches=counts.total() - n0,
-                     **counts.acs_form(forms))
     return _readback(out)
 
 
@@ -374,12 +359,9 @@ def rs_check_superframe(p, start_ix: int = 0, rs_dims: int = 0,
         sf = placement.ingest(buf, dispatch.state().device, torch.uint8)
         # one launch into one buffer, one copy back
         back, views = rs_ops.superframe_buffer(rs_dims, sf.device)
-        with calllog.span("rs") as sp:
-            n0 = counts.total() if sp else 0
+        with counts.stage("rs"):
             rs_ops.rs_check_superframes(sf[None], rs_dims,
                                         zero_after_fail=True, out=views)
-            if sp:
-                sp.count(launches=counts.total() - n0)
         errors, out, n_ok = rs_ops.unpack_superframe_buffer(
             _readback(back), rs_dims)
     if out_vector is not None:

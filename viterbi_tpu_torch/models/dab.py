@@ -105,9 +105,8 @@ def decode_frames(flat: torch.Tensor, framebits: int, use_kernels: bool,
     decisions, _ = acs.forward(flat, nsteps)
     if scan:
         return traceback.chainback_scan(decisions, framebits)
-    block = next(b for b in (64, 48, 32, 24, 16, 8, 4, 2, 1)
-                 if framebits % b == 0)
-    return traceback.chainback_blocked(decisions, framebits, block=block)
+    return traceback.chainback_blocked(decisions, framebits,
+                                       block=traceback.block_for(framebits))
 
 
 def rs_superframes(sf: torch.Tensor, rs_dims: int,
@@ -149,15 +148,13 @@ def depuncture_words(rec: torch.Tensor, prof: P.Profile,
     frame-major packed words (``packed="bt"``), by kernel J or its plain
     version. Counters: ``kept_bytes`` read, ``mother_bytes`` written,
     ``launches``."""
-    with calllog.span("depuncture") as sp:
-        n0 = counts.total() if sp else 0
+    with counts.stage("depuncture") as sp:
         fn = depuncture_ops.depuncture if kernels \
             else depuncture_ops.depuncture_plain
         mother = fn(rec, prof)
         if sp:
             sp.count(kept_bytes=rec.numel() * rec.element_size(),
-                     mother_bytes=mother.numel(),
-                     launches=counts.total() - n0)
+                     mother_bytes=mother.numel())
     return mother.view(torch.int32)
 
 
@@ -201,21 +198,13 @@ def decode_audio_superframes(symbols, bitrate_kbps: int,
             syms = depuncture_words(rec.reshape(-1, kept), prof, kernels)
             layout = "bt"
         flat = syms.reshape(B * SUPERFRAME_FRAMES, -1)
-        with calllog.span("viterbi") as sp:
-            n0 = counts.total() if sp else 0
-            forms = counts.regs_forms() if sp else None
+        with counts.stage("viterbi"):
             frame_bytes = decode_frames(flat, cfg.framebits, kernels,
                                         packed=layout)
-            if sp:
-                sp.count(launches=counts.total() - n0,
-                         **counts.acs_form(forms))
         sf = bytes_to_superframes(
             frame_bytes.reshape(B, SUPERFRAME_FRAMES, cfg.frame_bytes), cfg)
-        with calllog.span("rs") as sp:
-            n0 = counts.total() if sp else 0
+        with counts.stage("rs"):
             out = rs_superframes(sf, cfg.rs_dims, kernels)
-            if sp:
-                sp.count(launches=counts.total() - n0)
     return out
 
 

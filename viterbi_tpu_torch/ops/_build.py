@@ -192,14 +192,29 @@ class Kernel:
     launches on the caller's current stream of the tensors' device, which
     is made the current device only where it is not, and returns
     ``cudaGetLastError()``: a refused launch raises.
+
+    The launch path is where launches are counted: each launch the card
+    accepts adds one to ``tally``, under the form the wrapper names
+    (kernel A's lanes a frame; None for a kernel of one form).
+    ``launches`` is their sum; ``ops.counts`` reads them.
     """
 
-    __slots__ = ("library", "symbol", "name", "_lib", "_fn")
+    __slots__ = ("library", "symbol", "name", "tally", "_lib", "_fn")
 
-    def __init__(self, library: Library, symbol: str, name: str):
+    def __init__(self, library: Library, symbol: str, name: str,
+                 forms: tuple = (None,)):
         assert symbol in _ARGTYPES[library], symbol
         self.library, self.symbol, self.name = library, symbol, name
+        self.tally = dict.fromkeys(forms, 0)
         self._lib = self._fn = None
+
+    @property
+    def launches(self) -> int:
+        return sum(self.tally.values())
+
+    def zero(self) -> None:
+        for form in self.tally:
+            self.tally[form] = 0
 
     def function(self):
         """The bound C function (loads the library at first use)."""
@@ -208,9 +223,10 @@ class Kernel:
             self._fn = getattr(self._lib, self.symbol)
         return self._fn
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args, form=None) -> None:
         """Launch on ``device`` (a CUDA device with its index, as a
-        tensor's) with the C function's arguments but the stream."""
+        tensor's) with the C function's arguments but the stream, and
+        count it under ``form``."""
         fn = self._fn or self.function()
         index = device.index
         if index == _current_device():
@@ -220,9 +236,12 @@ class Kernel:
                 err = fn(*args, _raw_stream(index))
         if err:
             check(self._lib, err, self.name)
+        self.tally[form] += 1
 
 
-ACS_REGS = Kernel(MAIN, "acs_regs_launch", "acs_regs")
+#: kernel A counts its launches by form: 1, 4 (kLanes) or 32 (kWarpLanes)
+#: lanes a frame, as ``acs_cuda`` names them
+ACS_REGS = Kernel(MAIN, "acs_regs_launch", "acs_regs", forms=(1, 4, 32))
 TB_WALK = Kernel(MAIN, "tb_walk_launch", "tb_walk")
 ACS_WORDS = Kernel(MAIN, "acs_words_launch", "acs_words")
 TB_WORDS = Kernel(MAIN, "tb_words_launch", "tb_words")

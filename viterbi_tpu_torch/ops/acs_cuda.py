@@ -417,8 +417,7 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     32 survivor input bits as of step min((k+1)*ckpt, nsteps+front_pad).
 
     Kernel A on a CUDA tensor, ``forward_regs_plain`` on a CPU tensor;
-    ``forward_regs.launches`` counts the kernel's launches and
-    ``REGS_LAUNCHES`` each form's. ``lanes`` names the kernel's
+    the launch is counted under its form. ``lanes`` names the kernel's
     form, 1, ``LANES`` or ``WARP_LANES`` lanes a frame; left out, the
     batch decides (``REGS_WARP_FRAMES``, ``REGS_ONE_LANE_FRAMES``). The
     results are the same.
@@ -441,15 +440,8 @@ def forward_regs(symbols: torch.Tensor, nsteps: int,
     _build.ACS_REGS.launch(
         dev, sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, total,
         front_pad, reset_at, ckpt, regs.data_ptr(), metrics.data_ptr(),
-        lanes, ACS_THREADS)
-    forward_regs.launches += 1
-    REGS_LAUNCHES[lanes] += 1
+        lanes, ACS_THREADS, form=lanes)
     return regs, metrics
-
-
-forward_regs.launches = 0
-#: kernel A's launches by form: lanes a frame -> launches
-REGS_LAUNCHES = dict.fromkeys((1, LANES, WARP_LANES), 0)
 
 
 def forward_plain(symbols: torch.Tensor, nsteps: int,
@@ -476,10 +468,10 @@ def forward(symbols: torch.Tensor, nsteps: int,
     final_metrics int32[B, 64]): bit s of word s//32 is the decision into
     state s, as int32 bit patterns.
 
-    Kernel C on a CUDA tensor, ``forward_plain`` on a CPU tensor;
-    ``forward.launches`` counts the kernel's launches. ``lanes`` names the
-    kernel's form, 1 or ``LANES`` lanes a frame; left out, the batch
-    decides (``WORDS_ONE_LANE_FRAMES``). The results are the same.
+    Kernel C on a CUDA tensor, ``forward_plain`` on a CPU tensor.
+    ``lanes`` names the kernel's form, 1 or ``LANES`` lanes a frame; left
+    out, the batch decides (``WORDS_ONE_LANE_FRAMES``). The results are
+    the same.
     """
     if symbols.device.type == "cpu":
         return forward_plain(symbols, nsteps, initial_metrics, packed)
@@ -498,11 +490,7 @@ def forward(symbols: torch.Tensor, nsteps: int,
     _build.ACS_WORDS.launch(
         dev, sym.data_ptr(), sb, st, unpacked, init.data_ptr(), B, nsteps,
         dec.data_ptr(), metrics.data_ptr(), lanes, WORDS_THREADS)
-    forward.launches += 1
     return dec, metrics
-
-
-forward.launches = 0
 
 
 def decode(symbols: torch.Tensor, framebits: int,

@@ -1,59 +1,84 @@
 """The launch counts of kernels A-D, I and J (I by its two entries,
-codewords and superframes). Each wrapper adds one to its
-``.launches`` where it launches its kernel, and nowhere else; a caller
-sets them to 0 before a path and reads them after it, to show that the
-path went through the kernels. Kernel A also counts its launches by
-form (``acs_cuda.REGS_LAUNCHES``, by lanes a frame)."""
+codewords and superframes), read from the launch path: each
+``_build.Kernel`` adds one to its tally where the card accepts a launch
+(kernel A's by form, its lanes a frame), and nothing else counts. A
+caller sets them to 0 before a path and reads them after it, to show
+that the path went through the kernels (``only``); ``stage`` is a traced
+stage of a call that records its launches."""
 
 from __future__ import annotations
 
-from . import acs_cuda, depuncture, rs
-from . import traceback as tb
+from ..runtime import calllog
+from . import _build
 
 #: kernels A-D and J by their rows' names in chip_smoke.py's kernels line,
 #: and kernel I's two entries (its row, ``rs_decode``, counts both)
-KERNELS = {"acs_regs": (acs_cuda, "forward_regs"),
-           "acs_words": (acs_cuda, "forward"),
-           "tb_walk": (tb, "tb_walk"),
-           "tb_words": (tb, "tb_words"),
-           "rs_decode": (rs, "rs_decode_blocks"),
-           "rs_superframes": (rs, "rs_check_superframes"),
-           "depuncture": (depuncture, "depuncture")}
+KERNELS = {k.name: k for k in (
+    _build.ACS_REGS, _build.ACS_WORDS, _build.TB_WALK, _build.TB_WORDS,
+    _build.RS_DECODE, _build.RS_SUPERFRAMES, _build.DEPUNCTURE)}
 
 
 def zero_launches() -> None:
-    for module, name in KERNELS.values():
-        getattr(module, name).launches = 0
-    for lanes in acs_cuda.REGS_LAUNCHES:
-        acs_cuda.REGS_LAUNCHES[lanes] = 0
-
-
-def regs_forms() -> dict:
-    """Kernel A's launches by form so far: read before a stage and handed
-    to ``acs_form`` after it."""
-    return dict(acs_cuda.REGS_LAUNCHES)
-
-
-def acs_form(before: dict) -> dict:
-    """The counter ``acs_lanes`` of a stage: the lanes a frame of the form
-    kernel A launched in since ``before`` (``regs_forms()``), the widest
-    where it launched in several; no counter where it did not launch."""
-    lanes = [k for k, n in acs_cuda.REGS_LAUNCHES.items()
-             if n > before.get(k, 0)]
-    return {"acs_lanes": max(lanes)} if lanes else {}
+    for kernel in KERNELS.values():
+        kernel.zero()
 
 
 def launches() -> dict:
     """Launches of kernels A-D, I and J since ``zero_launches``."""
-    return {k: getattr(m, n).launches for k, (m, n) in KERNELS.items()}
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def total() -> int:
     """Launches of kernels A-D, I and J, all entries together: read before
     and after a stage, the stage's launches."""
-    return sum([getattr(m, n).launches for m, n in KERNELS.values()])
+    return sum([k.launches for k in KERNELS.values()])
 
 
 def missing(counts: dict, names) -> list:
     """The kernels of ``names`` that ``counts`` shows never launched."""
     return [k for k in names if not counts.get(k)]
+
+
+def only(expected: dict, counts: dict | None = None) -> bool:
+    """Whether ``counts`` (default: ``launches()``) shows exactly the
+    launches ``expected`` names and none of every other kernel."""
+    unknown = set(expected) - set(KERNELS)
+    if unknown:
+        raise ValueError(f"no kernel named {sorted(unknown)}")
+    if counts is None:
+        counts = launches()
+    return counts == {k: expected.get(k, 0) for k in KERNELS}
+
+
+class _Stage:
+    """A traced stage: its span, and the launches when it opened."""
+    __slots__ = ("span", "n0", "forms0")
+
+    def __init__(self, span):
+        self.span = span
+
+    def __enter__(self):
+        sp = self.span.__enter__()
+        self.n0 = total()
+        self.forms0 = dict(_build.ACS_REGS.tally)
+        return sp
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            forms = [k for k, n in _build.ACS_REGS.tally.items()
+                     if n > self.forms0[k]]
+            self.span.count(launches=total() - self.n0)
+            if forms:
+                self.span.count(acs_lanes=max(forms))
+        return self.span.__exit__(*exc)
+
+
+def stage(name: str):
+    """``calllog.span(name)`` around one stage of a call; the ``with``
+    hands back the span, for the caller's own counters. While tracing is
+    on the span gets, at its end, the counter ``launches`` (the kernels'
+    launches inside it) and, where kernel A launched, ``acs_lanes`` (the
+    lanes a frame of its form, the widest where it launched in several);
+    off, it is the span's shared no-op object and counts nothing."""
+    sp = calllog.span(name)
+    return _Stage(sp) if sp else sp

@@ -15,8 +15,8 @@ the index of its first kept symbol among the frame's kept symbols, so a
 step's kept symbols are the next popcount(mask) after that index. The
 table is made once per profile and device.
 
-On a CUDA tensor ``depuncture`` launches kernel J (``csrc/depuncture.cu``)
-and ``depuncture.launches`` counts its launches; on a CPU tensor it runs
+On a CUDA tensor ``depuncture`` launches kernel J (``csrc/depuncture.cu``);
+on a CPU tensor it runs
 ``depuncture_plain``, a torch gather through the same table. The input
 is uint8 (the staged ingest's bytes) or int32 (the direct ingest's
 symbols, of which the low byte counts, as in kernel A's load); other
@@ -119,8 +119,4 @@ def depuncture(received: torch.Tensor, profile: P.Profile) -> torch.Tensor:
     _build.DEPUNCTURE.launch(
         dev, received.data_ptr(), received.stride(0) * elem, elem,
         table.data_ptr(), steps, n, out.data_ptr(), THREADS)
-    depuncture.launches += 1
     return out
-
-
-depuncture.launches = 0

@@ -231,23 +231,18 @@ def rs_decode_blocks(blocks: torch.Tensor):
     Bit-exact against ``golden.rs_decode_codeword`` for every codeword.
 
     On a CUDA tensor (uint8 or int32, read in place through its strides)
-    this launches kernel I, and ``rs_decode_blocks.launches`` counts the
-    launches; on a CPU tensor it is ``rs_decode_blocks_plain``.
+    this launches kernel I; on a CPU tensor it is
+    ``rs_decode_blocks_plain``.
     """
     if blocks.device.type == "cpu":
         return rs_decode_blocks_plain(blocks)
-    got = launch_codewords(_build.RS_DECODE, blocks, "rs_decode_blocks")
-    rs_decode_blocks.launches += 1
-    return got
-
-
-rs_decode_blocks.launches = 0
+    return launch_codewords(_build.RS_DECODE, blocks, "rs_decode_blocks")
 
 
 def launch_codewords(kernel: _build.Kernel, blocks: torch.Tensor,
                      name: str):
     """``rs_decode_blocks``' launch of ``kernel`` (kernel I, or a probe's
-    build of its device code) on a CUDA tensor; the caller counts it."""
+    build of its device code) on a CUDA tensor."""
     _card_only(blocks, name)
     _check_blocks(blocks)
     elem = {torch.uint8: 1, torch.int32: 4}.get(blocks.dtype)
@@ -322,8 +317,7 @@ def rs_check_superframes(sf: torch.Tensor, rs_dims: int, *,
     ``sf``'s device to write into and return (``superframe_buffer``).
 
     On a CUDA tensor this launches kernel I once (rows any distance
-    apart, bytes contiguous), and ``rs_check_superframes.launches``
-    counts the launches; on a CPU tensor (any integer type) it is
+    apart, bytes contiguous); on a CPU tensor (any integer type) it is
     ``rs_check_superframes_plain``.
     """
     if sf.device.type == "cpu":
@@ -334,13 +328,10 @@ def rs_check_superframes(sf: torch.Tensor, rs_dims: int, *,
         for o, g in zip(out, got, strict=True):
             o.copy_(g)
         return out
-    got = launch_superframes(_build.RS_SUPERFRAMES, sf, rs_dims,
-                             zero_after_fail, out, "rs_check_superframes")
-    rs_check_superframes.launches += 1
-    return got
+    return launch_superframes(_build.RS_SUPERFRAMES, sf, rs_dims,
+                              zero_after_fail, out, "rs_check_superframes")
 
 
-rs_check_superframes.launches = 0
 _RESULT_TYPES = (torch.int32, torch.uint8, torch.int32)
 
 
@@ -348,8 +339,7 @@ def launch_superframes(kernel: _build.Kernel, sf: torch.Tensor,
                        rs_dims: int, zero_after_fail: bool,
                        out: tuple | None, name: str):
     """``rs_check_superframes``' launch of ``kernel`` (kernel I, or a
-    probe's build of its device code) on a CUDA tensor; the caller counts
-    it."""
+    probe's build of its device code) on a CUDA tensor."""
     _card_only(sf, name)
     _check_superframes(sf, rs_dims)
     if sf.dtype != torch.uint8:

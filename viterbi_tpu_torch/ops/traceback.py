@@ -137,8 +137,7 @@ def tb_words_plain(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
 def tb_words(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
     """The decision-word walk: kernel D on a CUDA tensor,
     ``tb_words_plain`` on a CPU tensor. Same arguments and result as
-    ``tb_words_plain``; ``tb_words.launches`` counts the kernel's
-    launches."""
+    ``tb_words_plain``."""
     if decisions.device.type == "cpu":
         return tb_words_plain(decisions, framebits)
     if decisions.device.type != "cuda":
@@ -153,11 +152,7 @@ def tb_words(decisions: torch.Tensor, framebits: int) -> torch.Tensor:
     _build.TB_WORDS.launch(
         decisions.device, decisions.data_ptr(), B, framebits, rs.data_ptr(),
         WORDS_TB_THREADS)
-    tb_words.launches += 1
     return rs
-
-
-tb_words.launches = 0
 
 
 def chainback_words_cuda(decisions: torch.Tensor,
@@ -169,6 +164,16 @@ def chainback_words_cuda(decisions: torch.Tensor,
     rs = tb_words(decisions, framebits)
     return _regs_bytes(rs, framebits, WORDS_WINDOW, gap=WORDS_WINDOW,
                        tail=0)
+
+
+def block_for(framebits: int, block: int = 64) -> int:
+    """The blocked traceback's block: ``block`` (the config key
+    ``traceback_block``) where it divides framebits, else the largest
+    of 64, 48, 32, 24, 16, 8, 4, 2, 1 that does."""
+    if framebits % block == 0:
+        return block
+    return next(b for b in (64, 48, 32, 24, 16, 8, 4, 2, 1)
+                if framebits % b == 0)
 
 
 def chainback_blocked(decisions: torch.Tensor, framebits: int,
@@ -315,7 +320,6 @@ def _launch_walk(regs, ckpt, gap, anchor, anchor_k, segments,
         None if anck is None else anck.data_ptr(), B, K, ckpt, gap,
         rs.data_ptr(), out.data_ptr() if nbytes else None, nbytes or 0,
         offset, nsteps, S)
-    tb_walk.launches += 1
     return rs, out
 
 
@@ -324,19 +328,15 @@ def tb_walk(regs: torch.Tensor, ckpt: int, gap: int,
             anchor_k: torch.Tensor | None = None,
             segments: int | None = None) -> torch.Tensor:
     """The checkpoint walk: kernel B on a CUDA tensor, ``tb_walk_plain``
-    on a CPU tensor. Same arguments and result as ``tb_walk_plain``;
-    ``tb_walk.launches`` counts the kernel's launches. ``segments`` names
-    the kernel's form, 1 (the serial walk) to ``TB_MAX_SEGMENTS`` lanes a
-    frame; left out, the batch decides (``TB_SEGMENTS_BY_BATCH``). The
-    result is the same in every form."""
+    on a CPU tensor. Same arguments and result as ``tb_walk_plain``.
+    ``segments`` names the kernel's form, 1 (the serial walk) to
+    ``TB_MAX_SEGMENTS`` lanes a frame; left out, the batch decides
+    (``TB_SEGMENTS_BY_BATCH``). The result is the same in every form."""
     if regs.device.type == "cpu":
         return tb_walk_plain(regs, ckpt, gap, anchor, anchor_k)
     if regs.device.type != "cuda":
         raise ValueError(f"tb_walk: unsupported device {regs.device}")
     return _launch_walk(regs, ckpt, gap, anchor, anchor_k, segments)[0]
-
-
-tb_walk.launches = 0
 
 
 def tb_walk_bytes(regs: torch.Tensor, framebits: int, ckpt: int, gap: int,
@@ -347,7 +347,7 @@ def tb_walk_bytes(regs: torch.Tensor, framebits: int, ckpt: int, gap: int,
     """The checkpoint walk with the byte assembly: (rs, bytes) =
     (``tb_walk(...)``, ``_regs_bytes(rs, framebits, ckpt, gap, tail,
     offset)``), for ``ckpt`` <= 24. On a CUDA tensor one launch of kernel
-    B (counted in ``tb_walk.launches``) writes both; on a CPU tensor the
+    B (counted as ``tb_walk``) writes both; on a CPU tensor the
     two plain versions run."""
     if regs.device.type == "cpu":
         rs = tb_walk_plain(regs, ckpt, gap, anchor, anchor_k)

@@ -9,7 +9,8 @@ redesign of the ACS kernels has to know.
 * ``rsform`` (no kernel): the RS decoder's field arithmetic through the
   tables against the JAX package's bitwise form.
 
-Each kernel's module has the kernel's wrapper with a ``.launches`` count, a plain
+Each kernel's module has the kernel's wrapper (its launches counted by
+the launch path, ``ops._build.Kernel``, as every kernel's), a plain
 PyTorch version of the same function (taken for CPU tensors only) and a
 ``main()`` that prints the probe's table on the card:
 ``python -m viterbi_tpu_torch.probes.kablate`` and so on. The kernels

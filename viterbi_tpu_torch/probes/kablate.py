@@ -79,8 +79,7 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
     ``lanes`` 1 or ``acs_cuda.LANES``: left out, the one of those two
     forms kernel A takes at this batch.
 
-    Kernel E on a CUDA tensor, the plain version on a CPU tensor;
-    ``forward_regs_ablated.launches`` counts the kernel's launches.
+    Kernel E on a CUDA tensor, the plain version on a CPU tensor.
     """
     if not packed:
         raise ValueError("the ablation kernel reads packed symbols")
@@ -106,11 +105,7 @@ def forward_regs_ablated(symbols: torch.Tensor, nsteps: int, ablate=(),
         dev, sym.data_ptr(), sb, st, sum(_MASK[a] for a in ablate),
         init.data_ptr(), B, total, ckpt, regs.data_ptr(), metrics.data_ptr(),
         lanes, ABLATE_THREADS)
-    forward_regs_ablated.launches += 1
     return regs, metrics
-
-
-forward_regs_ablated.launches = 0
 
 
 def run(framebits: int = 3072, batch: int = 8192, iters: int = 30,

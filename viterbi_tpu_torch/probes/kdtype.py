@@ -130,7 +130,6 @@ def _launch_op(codes, a, b, out) -> None:
     views may start at any element), one launch."""
     _build.KDTYPE_OP.launch(a.device, *codes, a.data_ptr(), b.data_ptr(),
                             out.data_ptr(), a.numel())
-    elementwise.launches += 1
 
 
 def _launch_chain(dtype: str, a, out, rounds: int) -> None:
@@ -138,7 +137,6 @@ def _launch_chain(dtype: str, a, out, rounds: int) -> None:
     _build.KDTYPE_CHAIN.launch(
         a.device, CHAIN_DTYPES.index(dtype), a.data_ptr(), out.data_ptr(),
         a.numel(), rounds, CHAIN_C, CHAIN_CAP, CHAIN_ONE)
-    chain.launches += 1
 
 
 def elementwise_plain(op: str, dtype: str, x: torch.Tensor,
@@ -176,8 +174,7 @@ def elementwise(op: str, dtype: str, x: torch.Tensor,
     or i16 with an op of ``OPS``, or a packed pair of ``PACKED_OPS``.
     Returns the int32 lane values of the result.
 
-    Kernel F on CUDA tensors, the plain version on CPU tensors;
-    ``elementwise.launches`` counts the kernel's launches.
+    Kernel F on CUDA tensors, the plain version on CPU tensors.
     """
     _check(x, dtype, OP_DTYPES + tuple(_PACKED))
     if y.shape != x.shape or y.dtype != x.dtype or y.device != x.device:
@@ -190,9 +187,6 @@ def elementwise(op: str, dtype: str, x: torch.Tensor,
     if a.numel():
         _launch_op(codes, a, b, out)
     return _from_storage(out, dtype, x.shape)
-
-
-elementwise.launches = 0
 
 
 def chain_plain(x: torch.Tensor, rounds: int, dtype: str) -> torch.Tensor:
@@ -215,8 +209,7 @@ def chain(x: torch.Tensor, rounds: int, dtype: str) -> torch.Tensor:
     gives the same lanes); ``dtype`` one of ``CHAIN_DTYPES``. Returns the
     int32 lane values after ``rounds`` rounds.
 
-    Kernel G on a CUDA tensor, the plain version on a CPU tensor;
-    ``chain.launches`` counts the kernel's launches.
+    Kernel G on a CUDA tensor, the plain version on a CPU tensor.
     """
     _check(x, dtype, CHAIN_DTYPES)
     if rounds < 0:
@@ -228,9 +221,6 @@ def chain(x: torch.Tensor, rounds: int, dtype: str) -> torch.Tensor:
     if a.numel():
         _launch_chain(dtype, a, out, rounds)
     return _from_storage(out, dtype, x.shape)
-
-
-chain.launches = 0
 
 
 def run_ops(iters: int = 50) -> list[dict]:

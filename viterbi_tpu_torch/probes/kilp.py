@@ -73,8 +73,7 @@ def streams(x: torch.Tensor, nstreams: int, mode: str, rounds: int,
     ``x``: int32 lanes; ``nstreams`` in ``STREAMS``; ``mode`` in
     ``MODES``. Returns int32: the sum of the streams' final values.
 
-    Kernel H on a CUDA tensor, the plain version on a CPU tensor;
-    ``streams.launches`` counts the kernel's launches.
+    Kernel H on a CUDA tensor, the plain version on a CPU tensor.
     """
     _check(x, nstreams, mode)
     if x.device.type == "cpu":
@@ -87,11 +86,7 @@ def streams(x: torch.Tensor, nstreams: int, mode: str, rounds: int,
         _build.KILP_STREAMS.launch(
             x.device, nstreams, MODES.index(mode), x.data_ptr(),
             out.data_ptr(), x.numel(), rounds, c)
-        streams.launches += 1
     return out
-
-
-streams.launches = 0
 
 
 def run(rounds: int = ROUNDS, iters: int = 10, shape=SHAPE) -> list[dict]:

@@ -111,17 +111,11 @@ def rs_decode_blocks_bitwise(blocks: torch.Tensor):
 def rs_decode_blocks_table_synd(blocks: torch.Tensor):
     """``ops.rs.rs_decode_blocks`` through kernel I's device code with the
     other syndrome form, the tables (``csrc/probes/rs_synd.cu``), on a
-    card tensor; its plain version on a CPU tensor. ``.launches`` counts
-    the launches."""
+    card tensor; its plain version on a CPU tensor."""
     if blocks.device.type == "cpu":
         return rs_ops.rs_decode_blocks_plain(blocks)
-    got = rs_ops.launch_codewords(_build.RS_TABLE_DECODE, blocks,
-                                  "rs_decode_blocks_table_synd")
-    rs_decode_blocks_table_synd.launches += 1
-    return got
-
-
-rs_decode_blocks_table_synd.launches = 0
+    return rs_ops.launch_codewords(_build.RS_TABLE_DECODE, blocks,
+                                   "rs_decode_blocks_table_synd")
 
 
 def rs_check_superframes_table_synd(sf: torch.Tensor, rs_dims: int, *,
@@ -131,20 +125,18 @@ def rs_check_superframes_table_synd(sf: torch.Tensor, rs_dims: int, *,
     if sf.device.type == "cpu":
         return rs_ops.rs_check_superframes_plain(
             sf, rs_dims, zero_after_fail=zero_after_fail)
-    got = rs_ops.launch_superframes(_build.RS_TABLE_SUPERFRAMES, sf, rs_dims,
-                                    zero_after_fail, None,
-                                    "rs_check_superframes_table_synd")
-    rs_check_superframes_table_synd.launches += 1
-    return got
-
-
-rs_check_superframes_table_synd.launches = 0
+    return rs_ops.launch_superframes(_build.RS_TABLE_SUPERFRAMES, sf,
+                                     rs_dims, zero_after_fail, None,
+                                     "rs_check_superframes_table_synd")
 
 FORMS = {"table": rs_ops.rs_decode_blocks_plain,
          "bitwise": rs_decode_blocks_bitwise}
 #: kernel I in its two syndrome forms (on a CPU tensor its plain version)
 KERNELS = {"kernel": rs_ops.rs_decode_blocks,
            "kernel_table_synd": rs_decode_blocks_table_synd}
+#: where the launch path counts each form's launches
+_LAUNCHED = {"kernel": _build.RS_DECODE,
+             "kernel_table_synd": _build.RS_TABLE_DECODE}
 #: the rows of the table: both field forms, then kernel I's two forms
 DECODERS = {**FORMS, **KERNELS}
 
@@ -169,7 +161,7 @@ def corrupt_mix(rng, base, frac, max_errs, uncorrectable=0):
 def run(codewords: int = CODEWORDS, iters: int = 3) -> list[dict]:
     """Every form on every mix: equal to each other, counts as planted,
     three codewords equal to the golden model; ms, the row's kernel's
-    launches (its wrapper's count; 0 for the field forms) and device
+    launches (the launch path's count; 0 for the field forms) and device
     launches (the profiler's) a call."""
     dev = _common.require_card()
     rng = np.random.default_rng(5)
@@ -182,12 +174,13 @@ def run(codewords: int = CODEWORDS, iters: int = 3) -> list[dict]:
         blocks = torch.from_numpy(cws).to(dev)
         results = {}
         for form, decode in DECODERS.items():
-            # the row's kernel's launches a call, from its counter over the
+            # the row's kernel's launches a call, from its count over the
             # result's call and the timed ones (the warm-up among them)
-            before = {k: f.launches for k, f in KERNELS.items()}
+            before = {k: f.launches for k, f in _LAUNCHED.items()}
             results[form] = decode(blocks)
             ms = _common.device_ms(lambda: decode(blocks), iters, 1)
-            launched = {k: f.launches - before[k] for k, f in KERNELS.items()}
+            launched = {k: f.launches - before[k]
+                        for k, f in _LAUNCHED.items()}
             per_call, rem = divmod(launched.pop(form, 0), iters + 2)
             if rem or any(launched.values()):
                 raise AssertionError(f"{mix} {form}: {per_call} a call, "

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.counts import (  # noqa: F401  (the tools' launch counts)
-    KERNELS, launches, missing, zero_launches)
+    KERNELS, launches, missing, only, zero_launches)
 from ..probes import _common
 
 #: where the records go by default: the repository's root
@@ -84,8 +84,8 @@ def percentiles(lat_ms: np.ndarray) -> dict:
 @contextlib.contextmanager
 def recorded(module, name):
     """Record the calls of ``module.name`` made inside the block as
-    (arguments, keyword arguments, result); the function runs as before,
-    and a wrapper's launch count goes on counting."""
+    (arguments, keyword arguments, result); the function runs as before
+    (its launches counted by the launch path)."""
     fn, calls = getattr(module, name), []
 
     def rec(*args, **kwargs):
@@ -93,16 +93,11 @@ def recorded(module, name):
         calls.append((args, kwargs, out))
         return out
 
-    counts = hasattr(fn, "launches")
-    if counts:
-        rec.launches = fn.launches
     setattr(module, name, rec)
     try:
         yield calls
     finally:
         setattr(module, name, fn)
-        if counts:
-            fn.launches = rec.launches
 
 
 def parser(doc: str) -> argparse.ArgumentParser:

@@ -107,12 +107,10 @@ def chunks(dev, data, tail, whole, chunk_frames: int, framebits: int,
     rec["none_held_back"] = rec["unemitted_bits_max"] < \
         sess.overlap + EMIT_QUANTUM
     if sess.use_kernels:
-        per_push = {k: v / max(n - 1, 1) for k, v in counts.items()}
-        rec["launches_per_push"] = per_push
-        rec["launches_ok"] = per_push == {"acs_regs": 2, "acs_words": 0,
-                                          "tb_walk": 1, "tb_words": 0,
-                                          "rs_decode": 0, "rs_superframes": 0,
-                                          "depuncture": 0}
+        pushes = max(n - 1, 1)
+        rec["launches_per_push"] = {k: v / pushes for k, v in counts.items()}
+        rec["launches_ok"] = _record.only(
+            {"acs_regs": 2 * pushes, "tb_walk": pushes}, counts)
         if hold is not None:
             hold(fwd, walk)
         (a, akw, _), (b, bkw, _) = fwd
