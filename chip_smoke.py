@@ -71,7 +71,11 @@ Phases (each raises on failure, so the exit code is non-zero):
      codewords entry in both syndrome forms at 65536 codewords on three
      error mixes, all four equal and timed; probes.rsphases: kernel I's
      steps timed by the card's clock in each block, its output equal to
-     the plain version;
+     the plain version; then deconvolve of one frame at each DAB+ size
+     (the ladder and 48 kbit/s): every call against golden, the median
+     ms a call on the eager path (the size's plan held busy) and
+     replayed, kernels A and B once a replay, the plans' captures and
+     replays;
  10. EEP path: decode_punctured_frames at 128 kbit/s for EEP 3-A and
      2-B, and decode_profile_frames with a four-segment row, against
      golden on a subset and, on the whole batch, against the plain path
@@ -976,6 +980,62 @@ def rs_export(tag, check) -> dict:
               f"the kernel in a replayed graph " + ", ".join(
                   f"{c} {ms:.4f} ms" for c, ms in k_ms.items()))
     return {"rs_superframes": per_call}
+
+
+#: one-frame deconvolve sizes of phase 9c: the DAB+ ladder and 48 kbit/s
+PLAN_SIZES = (192, 768, 1152, 1536, 2304, 3072, 4608, 9216)
+PLAN_CALLS = 50
+
+
+def frame_plan_times(tag) -> dict:
+    """Phase 9c: one-frame deconvolve through the API at each size of
+    PLAN_SIZES, every call against golden: the first call (eager), the
+    second (the plan captured and replayed), then PLAN_CALLS calls on the
+    eager path, the size's plan held busy so that the call takes it, and
+    PLAN_CALLS replayed, each replay one launch of kernels A and B.
+    Returns the median ms a call by size and path, and the plans' counts."""
+    import viterbi_tpu_torch
+    from viterbi_tpu_torch import golden
+    from viterbi_tpu_torch.harness import channel
+    from viterbi_tpu_torch.ops import counts
+    from viterbi_tpu_torch.runtime import dispatch, frameplan
+    rung("cuda_fused")
+    dev = dispatch.state().device
+    ms = {}
+    for fb in PLAN_SIZES:
+        _, syms = channel.make_frames(8, fb, seed=fb)
+        syms = syms.astype(np.int32)
+        want = golden.deconvolve_many(fb, syms)
+        out = np.empty(fb // 8, np.uint8)
+
+        def call(k):
+            t0 = time.perf_counter()
+            ret = viterbi_tpu_torch.deconvolve(fb, syms[k % 8], 0, out)
+            dt = time.perf_counter() - t0
+            assert ret == 0 and np.array_equal(out, want[k % 8]), \
+                f"deconvolve({fb}) call {k} differs from golden"
+            return dt
+
+        call(0)
+        call(1)
+        plan = frameplan.CACHE.plan(dev, fb)
+        assert plan is not None and plan.replays == 1, f"{fb}: no plan"
+        with plan.lock:
+            eager = [call(k) for k in range(PLAN_CALLS)]
+        counts.zero_launches()
+        replayed = [call(k) for k in range(PLAN_CALLS)]
+        assert counts.only({"acs_regs": PLAN_CALLS, "tb_walk": PLAN_CALLS}), \
+            f"{fb}: {counts.launches()} in {PLAN_CALLS} replays"
+        ms[fb] = {"eager": statistics.median(eager) * 1e3,
+                  "replayed": statistics.median(replayed) * 1e3}
+    stats = frameplan.CACHE.stats()
+    print(f"{tag} deconvolve of one frame, median ms a call of "
+          f"{PLAN_CALLS}, eager / replayed: " + ", ".join(
+              f"{fb} bits {t['eager']:.4f} / {t['replayed']:.4f}"
+              for fb, t in ms.items())
+          + f"; plans {stats['plans']}, captures {stats['captures']}, "
+          f"replays {stats['replays']}; every call equal to golden")
+    return {"ms": ms, **stats}
 
 
 def rs_forms(tag) -> dict:
@@ -2495,6 +2555,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rs_paths = {"superframe": sf_launches, "rs_check_superframe":
                 rs_export(tag, check), "rsform": rs_forms(tag)}
+    frame_plan_times(tag)
     print(f"RS phase: {time.perf_counter() - t0:.1f} s")
     # kernel I's bound on the chain's superframes: each byte read once, the
     # audio and the two int32 sums written once; the operations this run's

@@ -371,11 +371,14 @@ def test_on_the_card_the_stages_count_the_kernels_and_the_copies():
     """On the card each export and the chain count their own kernels
     (A and B a Viterbi stage, I an RS stage, with kernel A's form: these
     batches take the warp-wide one) and copies, and the profiler sees
-    every span beside the device's operations."""
+    every span beside the device's operations. The traced ``deconvolve``
+    is its size's second call, so it replays the size's plan
+    (``graphed`` 1): one byte a symbol copied up."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     dev = torch.device("cuda", 0)
     viterbi_tpu_torch.initialize(device=dev)
+    _call("deconvolve", dev)                # the size's eager first call
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     nbytes = {}
@@ -383,14 +386,17 @@ def test_on_the_card_the_stages_count_the_kernels_and_the_copies():
         for entry in TREES:
             nbytes[entry] = _call(entry, dev)
     torch.cuda.synchronize()
+    nbytes["deconvolve"] //= np.dtype(np.int32).itemsize
     by_request = {}
     for r in calllog.spans():
         by_request.setdefault(r.request, []).append(r)
     assert len(by_request) == len(TREES)
     for entry, recs in zip(TREES, by_request.values()):
-        _, stages = _one_tree(recs, entry)
+        root, stages = _one_tree(recs, entry)
         assert stages["ingest"].counters == {"h2d_bytes": nbytes[entry],
                                              "staged_chunks": 0}
+        if entry == "deconvolve":
+            assert root.counters == {"graphed": 1}
         if "viterbi" in stages:
             assert stages["viterbi"].counters == {
                 "launches": 2, "acs_lanes": acs_cuda.WARP_LANES}

@@ -22,8 +22,12 @@ a decoder fault: it returns no error code and latches nothing.
 
 Symbols arrive as host arrays, go to the device once per call
 (``placement.ingest``), and the decoded bytes come back as numpy uint8.
-Each export call is a span of ``runtime.calllog`` (``api.<export>``),
-with its stages ``ingest``, ``viterbi`` or ``rs``, and ``readback``.
+A one-frame ``deconvolve`` of integers on the card's fused rung replays
+its size's CUDA graph from the size's second call on
+(``runtime.frameplan``). Each export call is a span of
+``runtime.calllog`` (``api.<export>``), with its stages ``ingest``,
+``viterbi`` or ``rs``, and ``readback``; ``api.deconvolve`` counts
+``graphed``, 1 where the call replayed a plan.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from . import constants as C
 from .ops import acs, acs_cuda, counts
 from .ops import rs as rs_ops
 from .ops import traceback as tb
-from .runtime import calllog, dispatch, faults, placement
+from .runtime import calllog, dispatch, faults, frameplan, placement
 
 _SAFE = faults.SAFE_MODE_RETVAL
 
@@ -88,7 +92,9 @@ def initialize(config_path: str | None = None, *, device=None) -> bool:
     """Re-init: clears the safe-mode latch, re-reads the config,
     re-probes the backend (building the kernels on first use). The
     device is ``device``, else the one chosen before, else the card
-    (``placement.NoDeviceError`` where there is none)."""
+    (``placement.NoDeviceError`` where there is none). Drops every
+    one-frame plan (``runtime.frameplan``)."""
+    frameplan.CACHE.clear()
     return dispatch.initialize(config_path, device=device)
 
 
@@ -247,7 +253,11 @@ def deconvolve(framebits: int, symbols, input_length: int = 0,
     with calllog.span("api.deconvolve") as call:
         syms = syms[: C.RATE * (framebits + C.TAIL_BITS)]
         call.record("deco", syms, source=symbols, framebits=framebits)
-        out = _decode_batch(syms[None, :], framebits)[0]
+        out = frameplan.CACHE.decode(dispatch.state(), syms, framebits)
+        if call:
+            call.count(graphed=int(out is not None))
+        if out is None:
+            out = _decode_batch(syms[None, :], framebits)[0]
     if output is not None:
         _buf_write(output, slice(0, out.size), out)
     _tls.deco_out = out

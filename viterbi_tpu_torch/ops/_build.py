@@ -17,6 +17,7 @@ turns a non-zero code into an error.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -195,8 +196,9 @@ class Kernel:
 
     The launch path is where launches are counted: each launch the card
     accepts adds one to ``tally``, under the form the wrapper names
-    (kernel A's lanes a frame; None for a kernel of one form).
-    ``launches`` is their sum; ``ops.counts`` reads them.
+    (kernel A's lanes a frame; None for a kernel of one form), or, while
+    its thread captures a CUDA graph, to the launches ``recording``
+    hands back. ``launches`` is their sum; ``ops.counts`` reads them.
     """
 
     __slots__ = ("library", "symbol", "name", "tally", "_lib", "_fn")
@@ -236,7 +238,39 @@ class Kernel:
                 err = fn(*args, _raw_stream(index))
         if err:
             check(self._lib, err, self.name)
-        self.tally[form] += 1
+        made = _capturing.made
+        if made is None:
+            self.tally[form] += 1
+        else:
+            made[self, form] = made.get((self, form), 0) + 1
+
+
+class _Capturing(threading.local):
+    #: the launches of the graph this thread captures; None outside one
+    made = None
+
+
+_capturing = _Capturing()
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block, this thread's launches are counted into the dict
+    it hands back, by (``Kernel``, form), and not into the tallies: a CUDA
+    graph's capture launches nothing on the card. Each replay of the
+    graph then adds them (``replayed``)."""
+    _capturing.made = made = {}
+    try:
+        yield made
+    finally:
+        _capturing.made = None
+
+
+def replayed(made: dict) -> None:
+    """Adds the launches of one replay of a captured graph, as
+    ``recording`` handed them back, to the kernels' tallies."""
+    for (kernel, form), n in made.items():
+        kernel.tally[form] += n
 
 
 #: kernel A counts its launches by form: 1, 4 (kLanes) or 32 (kWarpLanes)

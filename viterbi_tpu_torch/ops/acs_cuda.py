@@ -494,15 +494,18 @@ def forward(symbols: torch.Tensor, nsteps: int,
 
 
 def decode(symbols: torch.Tensor, framebits: int,
-           packed: bool | str = False) -> torch.Tensor:
+           packed: bool | str = False,
+           initial_metrics: torch.Tensor | None = None) -> torch.Tensor:
     """Fused end-to-end decode: ``forward_regs`` + checkpoint walk.
 
     ``symbols`` in any ``forward_regs`` layout; ``framebits`` a multiple
-    of 8. Returns uint8[B, framebits // 8] MSB-first packed bytes on the
-    symbols' device.
+    of 8; ``initial_metrics`` as ``forward_regs`` takes them (a caller
+    that keeps them makes no fill a call). Returns uint8[B, framebits //
+    8] MSB-first packed bytes on the symbols' device.
     """
     if framebits <= 0 or framebits % 8:
         raise ValueError(f"decode needs framebits % 8 == 0, got {framebits}")
     nsteps = framebits + C.TAIL_BITS
-    regs, _ = forward_regs(symbols, nsteps, ckpt=DECODE_CKPT, packed=packed)
+    regs, _ = forward_regs(symbols, nsteps, initial_metrics,
+                           ckpt=DECODE_CKPT, packed=packed)
     return tb.chainback_regs_cuda(regs, framebits, ckpt=DECODE_CKPT)

@@ -158,14 +158,17 @@ def _stage(src: torch.Tensor, device: torch.device) -> torch.Tensor:
         return dst.view(src.shape)
 
 
-def _host_integers(data, device: torch.device):
+def _host_integers(data, device: torch.device, min_bytes: int | None = None):
     """``data`` as a CPU tensor that ``ingest_words`` and ``ingest_bytes``
-    narrow (host integers of a ``_NARROWS`` dtype, ``STAGE_MIN_BYTES`` or
-    more, not already on ``device``); None where it takes the direct
-    path."""
+    narrow (host integers of a ``_NARROWS`` dtype, ``min_bytes`` or more,
+    by default ``STAGE_MIN_BYTES``, not already on ``device``); None where
+    it takes the direct path. The one-frame plans (``runtime.frameplan``)
+    narrow by the same rule with no floor."""
+    if min_bytes is None:
+        min_bytes = STAGE_MIN_BYTES
     if not isinstance(data, torch.Tensor):
         data = np.asarray(data)
-        if data.nbytes < STAGE_MIN_BYTES:
+        if data.nbytes < min_bytes:
             return None
         # torch takes integers in native byte order, with strides of
         # whole elements
@@ -177,7 +180,7 @@ def _host_integers(data, device: torch.device):
             data = data.view(f"i{data.itemsize}")
         data = torch.from_numpy(data)
     elif (data.device.type != "cpu" or data.device == device
-          or data.numel() * data.element_size() < STAGE_MIN_BYTES):
+          or data.numel() * data.element_size() < min_bytes):
         return None
     if data.dtype not in _NARROWS or data.dim() == 0:
         return None
