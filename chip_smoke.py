@@ -9,7 +9,8 @@ Phases (each raises on failure, so the exit code is non-zero):
      viterbi_tpu_torch/csrc with nvcc, both libraries at the same time;
      kernels A, C and E, in both forms (one lane a frame and four; A also
      in its warp-wide form, 32 lanes a frame), must spill nothing; kernel I must spill nothing, and in both syndrome
-     forms use at most 64 registers a thread;
+     forms use at most 64 registers a thread for RS(120,110); kernel I's
+     RS(204,188) entry and kernel K must spill nothing;
   3. kernels: kernel A (fused register-exchange ACS) and kernel B
      (checkpoint walk), kernel C (decisions) and kernel D (decision-word
      walk) against their plain torch versions on the card, bit for bit,
@@ -20,7 +21,12 @@ Phases (each raises on failure, so the exit code is non-zero):
      form (1 to 32 segments a frame) on random registers, whose walks
      never merge, and on kernel A's, with anchors, at 1 to 129
      checkpoints, and its byte output against _regs_bytes of the plain
-     walk;
+     walk; kernel K (the T-DMB deinterleaver) at the chain calls of
+     tdmb_stream.bulk (8 streams x 100 CIFs x 8 packets, 16 x 100 x 4),
+     fresh and continuing its carry, and kernel I's RS(204,188) entry
+     on 6400 clean, dirty (1 to 8 byte errors) and 12-error codewords,
+     contiguous and strided; one launch a call each, timed in a replayed
+     graph;
   4. main path: initialize() must pick the cuda_fused rung; decode
      B=16384 noisy frames of 3072 bits through
      deconvolve_batch(packed=True), bit-equal to the golden model and
@@ -86,7 +92,10 @@ Phases (each raises on failure, so the exit code is non-zero):
      (one launch each), against the plain-only call on the card and the
      plain reference (reference/punctured.py) on two superframes;
      kernel J against its plain version on the path's bytes, timed at
-     EEP 3-A;
+     EEP 3-A; then models.tdmb.decode_ts_streams on 8 streams at 544
+     kbit/s over 14 CIFs in two calls carrying the state: kernels J, A,
+     B, K and I's packets entry once a call, equal to the plain-only
+     calls on the card, with corrected and uncorrectable packets;
  11. replay: the committed corpus replays bit-exactly;
  12. probes: kernels E to H against their plain versions, bit for bit,
      at the probes' own shapes (F also at lane counts around one thread's
@@ -139,7 +148,8 @@ Phases (each raises on failure, so the exit code is non-zero):
      (kernels A and B, equal to golden and to its plain form on the CPU),
      entry.dryrun_multichip(4) on cuda:0 (kernels A and B launched in every
      path of every rank), tools.parity --quick (twelve sections, 0
-     mismatches, kernels A to D launched) and tools.overlap_sweep at 0 dB,
+     mismatches, every kernel of ops.counts launched, the T-DMB chain's
+     K and I's packets entry among them) and tools.overlap_sweep at 0 dB,
      seed 0, overlaps 24 and 96 (the plain form equal to
      OVERLAP_SWEEP.json's cells, the kernel form equal to the plain form
      at its effective overlap);
@@ -153,7 +163,7 @@ Phases (each raises on failure, so the exit code is non-zero):
      card.
 Phases 13-15 also time each launch of their call alone.
 The last line of output is {"ok": true, "device": {...}}; the line
-before it lists the eleven kernels as JSON, each with its launches on its
+before it lists the thirteen kernels as JSON, each with its launches on its
 path (A to D and I also by path, phases 8-18 included; I by both its
 entries), its time beside its plain version's, and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its integer operations (the
@@ -182,6 +192,14 @@ B_MAIN = 16384          # frames per main-path call
 FB_MAIN = 3072          # framebits of the main-path call (128 kbit/s)
 B_CHECK = 1024          # frames per kernel-vs-plain check
 EEP_SF = 512            # superframes a punctured chain call (phase 10)
+# T-DMB (phases 3 and 10): tdmb_stream.bulk's chain calls, (streams,
+# packets a CIF) of its 544 and 272 kbit/s groups over 100 CIFs; the
+# byte errors of kernel I's RS(204,188) check and their shares; the
+# chain's streams and CIFs at 544 kbit/s
+TS_GROUPS = ((8, 8), (16, 4))
+TS_CALL_CIFS = 100
+TS_MIX = {0: 0.4, **dict.fromkeys(range(1, 9), 0.07), 12: 0.04}
+TS_STREAMS, TS_CIFS = 8, 14
 EBN0_DB = 3.0
 # the harness gate's exact counts on its seeded frames (HARNESS_TPU.json)
 GATE = {"frames": 5000, "bit_errors": 2637, "bad_frames": 595}
@@ -1215,6 +1233,137 @@ def punctured_chain(dev, tag, check) -> dict:
     return {"launches": launches, **timed}
 
 
+def rs_packet_mix(n: int, seed: int) -> np.ndarray:
+    """``n`` RS(204,188) codewords uint8[n, 204] of random messages, each
+    hit by TS_MIX's byte errors at random places: clean, 1 to 8 (every
+    branch of the dirty path) and 12 (mostly uncorrectable)."""
+    from viterbi_tpu_torch.reference import tdmb as R
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 256, (256, R.K), dtype=np.uint8)
+    cws = np.stack([R.rs_encode(m) for m in msgs])[rng.integers(0, 256, n)]
+    errs = rng.choice(list(TS_MIX), n, p=list(TS_MIX.values()))
+    hit = np.zeros((n, R.N), dtype=bool)
+    np.put_along_axis(hit, np.argsort(rng.random((n, R.N)), axis=1),
+                      np.arange(R.N)[None, :] < errs[:, None], axis=1)
+    values = rng.integers(1, 256, (n, R.N), dtype=np.uint8)
+    return cws ^ np.where(hit, values, 0).astype(np.uint8)
+
+
+def tdmb_kernels(dev, tag, check, clock_hz) -> tuple:
+    """Phase 3, T-DMB: kernel K and kernel I's RS(204,188) entry against
+    their plain versions at the shapes of a chain call of
+    ``tdmb_stream.bulk`` (TS_GROUPS: streams x TS_CALL_CIFS CIFs x
+    packets a CIF), K fresh and then continuing its own carry, I on
+    TS_MIX's clean, dirty and 12-error codewords, contiguous and through
+    rows 256 bytes apart; one launch a call each. Returns their times
+    (device time in a replayed graph, plain on the card) and bounds at
+    the 544 kbit/s group's call."""
+    import torch
+    from viterbi_tpu_torch.ops import counts
+    from viterbi_tpu_torch.ops import deinterleave as dl
+    from viterbi_tpu_torch.ops import rs as rs_ops
+    from viterbi_tpu_torch.probes import _common
+    g = torch.Generator(device=dev).manual_seed(25)
+    times, bounds = {}, {}
+    for S, p in TS_GROUPS:
+        L = TS_CALL_CIFS * p * dl.PACKET
+        carry = carry_p = None
+        for part in ("fresh", "continued"):
+            data = torch.randint(0, 256, (S, L), generator=g, device=dev,
+                                 dtype=torch.uint8)
+            counts.zero_launches()
+            out, new = dl.deinterleave(data, carry)
+            torch.cuda.synchronize()
+            assert counts.only({"deinterleave": 1}), counts.launches()
+            want, want_new = dl.deinterleave_plain(data.cpu(), carry_p)
+            what = f"{S} streams x {L} bytes, {part}"
+            check("deinterleave", out, want, what + ", codewords")
+            check("deinterleave", new, want_new, what + ", carry")
+            if (S, p) == TS_GROUPS[0] and part == "continued":
+                cont = carry
+                times["deinterleave"] = (
+                    _common.graph_ms(lambda: dl.deinterleave(data, cont),
+                                     100),
+                    cuda_ms(lambda: dl.deinterleave_plain(data, cont),
+                            5)[0])
+                bounds["deinterleave"] = bound(2 * S * L + 2 * S
+                                               * dl.CARRY_BYTES, 0.0,
+                                               clock_hz)
+            carry, carry_p = new, want_new
+    n = TS_GROUPS[0][0] * TS_CALL_CIFS * TS_GROUPS[0][1]
+    rx = torch.from_numpy(rs_packet_mix(n, seed=25))
+    want_count, want_data = rs_ops.rs_decode_packets_plain(rx)
+    wide = torch.zeros((n, 256), dtype=torch.uint8)
+    wide[:, 20:20 + rs_ops.P_N] = rx
+    drx, dwide = rx.to(dev), wide.to(dev)[:, 20:20 + rs_ops.P_N]
+    for what, x in (("contiguous", drx), ("rows 256 B apart", dwide)):
+        counts.zero_launches()
+        count, data = rs_ops.rs_decode_packets(x)
+        torch.cuda.synchronize()
+        assert counts.only({"rs_packets": 1}), counts.launches()
+        check("rs_packets", count, want_count, f"{n} codewords {what}")
+        check("rs_packets", data, want_data, f"{n} codewords {what}")
+    mix = {"clean": int((want_count == 0).sum()),
+           "corrected": int((want_count > 0).sum()),
+           "failed": int((want_count == -1).sum())}
+    assert all(mix.values()), mix
+    times["rs_packets"] = (
+        _common.graph_ms(lambda: rs_ops.rs_decode_packets(drx), 100),
+        cuda_ms(lambda: rs_ops.rs_decode_packets_plain(drx), 2)[0])
+    # bytes in and out, the syndromes' 1632 x 128 product on the tensor
+    # cores; the dirty codewords' work left out (dabbench/roofline_tdmb)
+    bounds["rs_packets"] = bound(
+        n * (rs_ops.P_N + rs_ops.P_K + 4), 0.0, clock_hz,
+        tensor_ops=n * 2 * (8 * rs_ops.P_N) * (8 * rs_ops.P_NROOTS))
+    print(f"{tag} kernel K vs plain: {TS_GROUPS} (streams, packets a CIF) "
+          f"x {TS_CALL_CIFS} CIFs, fresh and continued, bit-identical, "
+          f"{times['deinterleave'][0]:.4f} ms a call in a replayed graph; "
+          f"kernel I's RS(204,188) entry vs plain: {n} codewords {mix}, "
+          f"contiguous and strided, bit-identical, "
+          f"{times['rs_packets'][0]:.4f} ms in a replayed graph")
+    return times, bounds
+
+
+def tdmb_path(dev, tag) -> dict:
+    """Phase 10, T-DMB: ``models.tdmb.decode_ts_streams`` on TS_STREAMS
+    streams at 544 kbit/s EEP-3A over TS_CIFS CIFs (above the eleven
+    packets of zero fill) in two calls, the second continuing the first's
+    state: one launch each of kernels J, A, B, K and I's packets entry a
+    call, equal to the same calls through plain versions only on the
+    card; returns the launches."""
+    import torch
+    from viterbi_tpu_torch.harness import channel
+    from viterbi_tpu_torch.models import tdmb
+    from viterbi_tpu_torch.ops import counts
+    kernels = ("depuncture", "acs_regs", "tb_walk", "deinterleave",
+               "rs_packets")
+    rx = torch.from_numpy(channel.make_ts_streams(
+        TS_STREAMS, TS_CIFS, 544, seed=25, esn0_db=-0.2, bad=(13,))).to(dev)
+    half = TS_CIFS // 2
+    counts.zero_launches()
+    t0 = time.perf_counter()
+    a = tdmb.decode_ts_streams(rx[:, :half], 544)
+    b = tdmb.decode_ts_streams(rx[:, half:], 544, state=a[2])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts.launches()
+    assert counts.only(dict.fromkeys(kernels, 2)), launches
+    pa = tdmb.decode_ts_streams(rx[:, :half], 544, use_kernels=False)
+    pb = tdmb.decode_ts_streams(rx[:, half:], 544, state=pa[2],
+                                use_kernels=False)
+    for got, want in ((a, pa), (b, pb)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+            "the T-DMB chain != the same calls through plain versions only"
+    errors = torch.cat([a[1], b[1]], 1).cpu()
+    assert (errors == -1).any() and (errors > 0).any(), errors
+    print(f"{tag} T-DMB chain at 544 kbit/s: {TS_STREAMS} streams x "
+          f"{TS_CIFS} CIFs in two calls with the carry, "
+          f"{int((errors > 0).sum())} packets corrected, "
+          f"{int((errors == -1).sum())} uncorrectable; kernels J, A, B, K, "
+          f"I once a call, equal to the plain-only calls ({ms:.1f} ms)")
+    return launches
+
+
 def replay_phase(root: Path) -> None:
     """Phase 11: the committed capture corpus through the port's API."""
     from viterbi_tpu_torch.harness import replay
@@ -2041,11 +2190,15 @@ def tools_phase(dev, tag) -> dict:
     paths["dryrun"] = {k: sum(c[k] for c in ranks[0]["launches"].values())
                        for k in _record.KERNELS}
     secs["dryrun"] = time.perf_counter() - t0
-    # the parity record's quick run: A, B, C and D launch, 0 mismatches
+    # the parity record's quick run: every kernel of ops.counts launches
+    # (the T-DMB chain's K and I's packets entry among them), 0 mismatches
     t0 = time.perf_counter()
     doc = parity.run(quick=True, device=dev)
     assert doc["ok"], {k: doc[k] for k in ("mismatches",
                                             "kernels_not_launched")}
+    assert not _record.missing(doc["launches"], _record.KERNELS) and \
+        doc["launches"]["deinterleave"] and doc["launches"]["rs_packets"], \
+        doc["launches"]
     paths["parity"] = doc["launches"]
     secs["parity"] = time.perf_counter() - t0
     # the overlap sweep at 0 dB, seed 0, overlaps 24 and 96, both forms
@@ -2231,6 +2384,16 @@ def main() -> int:
             assert regs <= 64, f"{name}: {regs} registers"
             assert lib is _build.PROBES or st == ld == 0, \
                 f"{name} spills {st}/{ld} bytes"
+    # kernel I's RS(204,188) entry (two blocks of 256 an SM: at most 128
+    # registers) and kernel K (a full SM of threads: at most 32); no spills
+    outer = {n: v for n, v in ptxas_summary(
+        _build.build_log(library=_build.MAIN)).items()
+        if "rs_packets_kernel" in n or "deinterleave_kernel" in n}
+    assert len(outer) == 2, f"kernels I (packets) and K: {list(outer)}"
+    for name, (regs, st, ld) in outer.items():
+        cap = 128 if "rs_packets_kernel" in name else 32
+        assert regs <= cap, f"{name}: {regs} registers"
+        assert st == ld == 0, f"{name} spills {st}/{ld} bytes"
     clock_hz = sm_clock_hz()
     print(f"bounds against {HBM_BYTES_S / 1e12} TB/s and "
           f"{INT_LANES * SMS * clock_hz / 1e12:.2f} T int32 ops/s "
@@ -2241,7 +2404,7 @@ def main() -> int:
     errs = dict.fromkeys(("acs_regs", "tb_walk", "acs_words", "tb_words",
                           "kablate", "kdtype_op", "kdtype_chain",
                           "kilp_streams", "rs_decode", "rs_synd_table",
-                          "depuncture"), 0)
+                          "depuncture", "deinterleave", "rs_packets"), 0)
 
     def check(kernel, got, want, what):
         e = max_abs_err(got, want)
@@ -2338,6 +2501,10 @@ def main() -> int:
     print(f"kernels C, D vs plain: {len(WORDS_FRAMEBITS)} x 3 layouts x 2 "
           f"entry metrics and {len(WALK_FRAMEBITS)} x 2 walks bit-identical "
           f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    ts_times, ts_bounds = tdmb_kernels(dev, tag, check, clock_hz)
+    print(f"kernels K and I's RS(204,188) entry vs plain: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # --- phase 4: the main path through the public API --------------------
     cfg_path = ROOT / "build" / "chip_smoke" / "viterbi.txt"
@@ -2445,7 +2612,7 @@ def main() -> int:
     n = FB_MAIN + C.TAIL_BITS
     ck = acs_cuda.DECODE_CKPT
     dsyms = torch.from_numpy(packed).to(dev)
-    times = {}
+    times = dict(ts_times)
 
     def timed(name, kernel, k_iters, plain, p_iters, parts):
         k_ms, got = cuda_ms(kernel, k_iters)
@@ -2535,6 +2702,7 @@ def main() -> int:
     K = -(-n // ck)
     state_bytes = B_MAIN * 64 * 4
     bounds = {
+        **ts_bounds,
         "acs_regs": bound(B_MAIN * n * 4 + (K + 2) * state_bytes,
                           B_MAIN * n * OPS_PER_STEP_A, clock_hz),
         # the registers it reads, the windows and the bytes it writes
@@ -2579,6 +2747,7 @@ def main() -> int:
     # written once; its integer operations a step
     bounds["depuncture"] = bound(j_row["bytes"],
                                  j_row["steps"] * OPS_PER_STEP_J, clock_hz)
+    tdmb_launches = tdmb_path(dev, tag)
     replay_phase(ROOT)
     print(f"EEP and replay phases: {time.perf_counter() - t0:.1f} s; "
           f"launches on the superframe path {sf_launches}, on the EEP path "
@@ -2591,7 +2760,8 @@ def main() -> int:
 
     # --- phases 13-16: tail-biting, streaming, sessions, host ingest ---------
     fused_gsym = nsym / (times["acs_regs"][0] + times["tb_walk"][0]) / 1e6
-    paths = {"main": launches, "eep": eep_launches, **rs_paths}
+    paths = {"main": launches, "eep": eep_launches, "tdmb": tdmb_launches,
+             **rs_paths}
     t_new = time.perf_counter()
     for name, phase in (
             ("tailbiting", lambda: tailbiting_phase(dev, tag, check)),
@@ -2647,6 +2817,9 @@ def main() -> int:
         # no Pallas kernel: the JAX package's XLA scatter
         "depuncture": (csrc + "depuncture.cu",
                        "viterbi_tpu/models/dab.py depuncture_device"),
+        # no T-DMB chain in the JAX package
+        "deinterleave": (csrc + "deinterleave.cu", None),
+        "rs_packets": (csrc + "rs_decode.cu", None),
     }
     # kernel I's row counts both its entries
     i_paths = {path: c.get("rs_decode", 0) + c.get("rs_superframes", 0)
@@ -2663,13 +2836,15 @@ def main() -> int:
                        plain_ms=times[name][1], library_ms=None,
                        **bounds[name])
         else:
-            # no single PyTorch call computes kernels A-D, I or J; kernel
+            # no single PyTorch call computes kernels A-D or I-K; kernel
             # I's launches are the superframe chain's (phase 8), kernel
-            # J's the EEP path's (phase 10)
+            # J's the EEP path's (phase 10), K's and I's packets entry's
+            # the T-DMB chain's (phase 10)
             by_path = i_paths if name == "rs_decode" else {
                 path: c.get(name, 0) for path, c in paths.items()}
-            row.update(launches=by_path[{"rs_decode": "superframe",
-                                         "depuncture": "eep"}.get(name,
+            row.update(launches=by_path[{
+                "rs_decode": "superframe", "depuncture": "eep",
+                "deinterleave": "tdmb", "rs_packets": "tdmb"}.get(name,
                                                                   "main")],
                        ms=times[name][0], plain_ms=times[name][1],
                        library_ms=None, **bounds[name])

@@ -20,6 +20,7 @@ from viterbi_tpu_torch import golden
 from viterbi_tpu_torch.harness import channel
 from viterbi_tpu_torch.models import dab
 from viterbi_tpu_torch.ops import _build, acs_cuda, counts
+from viterbi_tpu_torch.ops import deinterleave as dl
 from viterbi_tpu_torch.ops import depuncture as dp
 from viterbi_tpu_torch.ops import rs as rs_ops
 from viterbi_tpu_torch.ops import traceback as tb
@@ -46,7 +47,9 @@ WRAPPERS = {"acs_regs": (acs_cuda, "forward_regs"),
             "tb_walk": (tb, "tb_walk"), "tb_words": (tb, "tb_words"),
             "rs_decode": (rs_ops, "rs_decode_blocks"),
             "rs_superframes": (rs_ops, "rs_check_superframes"),
-            "depuncture": (dp, "depuncture")}
+            "depuncture": (dp, "depuncture"),
+            "rs_packets": (rs_ops, "rs_decode_packets"),
+            "deinterleave": (dl, "deinterleave")}
 
 
 @pytest.fixture(autouse=True)

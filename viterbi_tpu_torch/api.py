@@ -21,7 +21,9 @@ unless ``initialize(device="cpu")`` asked for the CPU. That raise is not
 a decoder fault: it returns no error code and latches nothing.
 
 Symbols arrive as host arrays, go to the device once per call
-(``placement.ingest``), and the decoded bytes come back as numpy uint8.
+(``placement.ingest``), and the decoded bytes come back as numpy uint8;
+``deconvolve_batch`` also takes an int32 tensor already on its device
+(a resident batch), which it decodes there.
 A one-frame ``deconvolve`` of integers on the card's fused rung replays
 its size's CUDA graph from the size's second call on
 (``runtime.frameplan``). Each export call is a span of
@@ -192,23 +194,31 @@ def _decode_tensor(syms: torch.Tensor, framebits: int, variant: str,
     return tb.chainback_blocked(decisions, framebits, block=block)
 
 
-def _decode_batch(symbols: np.ndarray, framebits: int,
+def _decode_batch(symbols, framebits: int,
                   packed: bool = False) -> np.ndarray:
     """Dispatch a batch through the selected variant: [B, 4*(framebits+6)]
     symbols, or packed int32[B, framebits+6] words, which go to the device
     as they are wherever framebits % 8 == 0. Unpacked symbols on the byte
     grid go through ``placement.ingest_words``, which narrows a large
-    batch to packed words on its way. Returns uint8[B, ceil(framebits/8)]
-    packed bytes."""
+    batch to packed words on its way. An int32 tensor (a resident batch)
+    is decoded where it lies, with no ingest. Returns uint8[B,
+    ceil(framebits/8)] packed bytes on the host."""
     st = dispatch.state()
     variant = dispatch.VARIANTS[st.variant]
+    resident = isinstance(symbols, torch.Tensor)
     if packed and framebits % 8:
         # off the byte grid the plain decode reads unpacked symbols: a
-        # host byte view of the words
-        symbols = np.ascontiguousarray(symbols, dtype=np.int32) \
-            .view(np.uint8).reshape(symbols.shape[0], -1)
+        # byte view of the words, where they lie
+        if resident:
+            symbols = symbols.contiguous().view(torch.uint8) \
+                .reshape(symbols.shape[0], -1).to(torch.int32)
+        else:
+            symbols = np.ascontiguousarray(symbols, dtype=np.int32) \
+                .view(np.uint8).reshape(symbols.shape[0], -1)
         packed = False
-    if packed or framebits % 8:
+    if resident:
+        syms = symbols
+    elif packed or framebits % 8:
         syms = placement.ingest(symbols, st.device)
     else:
         syms, packed = placement.ingest_words(symbols, st.device)
@@ -277,13 +287,23 @@ def deconvolve_batch(framebits: int, symbols_batch,
     ingest path. Where framebits % 8 == 0 the words go to the device as
     they are and every rung's forward kernel reads them in place; off the
     byte grid the plain decode reads a host byte view of them.
+
+    ``symbols_batch`` may also be an int32 torch tensor, on a card or on
+    the CPU, unpacked or packed: a resident batch, decoded where it lies
+    through the selected rung, with no copy up and no ``ingest`` stage.
+    The output is a host array as for any other input. The root span
+    counts ``resident``, 1 for a tensor and 0 for a host array.
     """
     if symbols_batch is None:
         raise faults.CrashError("null symbol buffer")
     framebits = int(framebits)
     if framebits <= 0 or framebits > C.MAX_FRAMEBITS:
         raise faults.ValidationError(f"bad framebits {framebits}")
-    syms = np.asarray(symbols_batch)
+    resident = isinstance(symbols_batch, torch.Tensor)
+    if resident and symbols_batch.dtype != torch.int32:
+        raise faults.ValidationError(
+            f"a resident batch is int32, got {symbols_batch.dtype}")
+    syms = symbols_batch if resident else np.asarray(symbols_batch)
     width = ((framebits + C.TAIL_BITS) if packed
              else C.RATE * (framebits + C.TAIL_BITS))
     if syms.ndim != 2 or syms.shape[1] < width:
@@ -293,6 +313,8 @@ def deconvolve_batch(framebits: int, symbols_batch,
         call.record("deco", syms, source=symbols_batch,
                     framebits=framebits, batch=syms.shape[0],
                     packed=int(packed))
+        if call:
+            call.count(resident=int(resident))
         out = _decode_batch(syms, framebits, packed=packed)
     return 0, out
 

@@ -1,6 +1,9 @@
 // Kernel I: the RS(120,110) decoder of RScheckSuperframe, one launch for
 // a batch of superframes (the DAB+ chain's RS stage, the export) or of
-// codewords.
+// codewords; and the same device code instantiated for RS(204,188), the
+// outer code of an MPEG-2 transport stream in a DAB stream-mode
+// subchannel (the T-DMB chain's RS stage), one launch for a batch of
+// 204-byte packets.
 //
 // Replaces viterbi_tpu/ops/rs.py:166 (rs_decode_blocks) and :300
 // (rs_check_superframe), jitted XLA functions (the chip runs each as one
@@ -25,7 +28,18 @@
 // 768-entry pre-reduced antilog table and index_of), which the wrapper
 // hands over and each block copies into shared memory once.
 //
-// Two entries, one device code (rs_decode.cuh):
+// RS(204,188) (rs_packets_launch; ETSI EN 300 744 4.3.2, shortened from
+// RS(255,239) by 51 leading zero bytes, the same field, sixteen roots from
+// alpha^0) follows the textbook bounded-distance rule, not the DLL's: the
+// sixteen syndromes, where all are zero the count is 0; Berlekamp-Massey
+// gives lambda of degree nu, -1 where nu > 8; the Chien search over the
+// 204 sent positions only (roots alpha^52 .. alpha^255), -1 unless they
+// number nu; omega = s * lambda mod x^16 in full; Forney's value at every
+// root, -1 where any is zero; else the values XOR-ed in and the count nu.
+// A -1 codeword comes back as received. The syndromes are the same
+// tensor-core product, 1632 x 128 a codeword in seven k-steps of 256.
+//
+// Three entries, one device code (rs_decode.cuh):
 //   rs_superframes_launch: uint8 superframes [G, D * 120], byte-
 //     interleaved as they arrive, rows s_g bytes apart -> errors int32[G]
 //     (the sum of the counts, -1 if any codeword fails), out uint8[G, D *
@@ -35,7 +49,10 @@
 //   rs_decode_launch: uint8 or int32 elements, codeword n's byte j at
 //     (n / D) * s_g + (n % D) * s_d + j * s_j elements -> count int32[B],
 //     corrected int32[B, 120] (the element XOR the correction; the
-//     syndromes read each element's low byte).
+//     syndromes read each element's low byte);
+//   rs_packets_launch: RS(204,188) codewords, uint8 rows of 204 bytes s_g
+//     bytes apart -> count int32[B], out uint8[B, 188] (each codeword's
+//     data as decoded, as received where the count is -1).
 //
 // What bounds it: on the mixes a receiver sees (most codewords clean) the
 // bytes, 230 a codeword with uint8 in and out (120 read, 110 written), and
@@ -89,6 +106,16 @@ int rs_decode_launch(const void* in, int elem_bytes, int B, int D,
   return rsk::codewords_launch<rsk::SyndMma>(
       in, elem_bytes, B, D, s_g, s_d, s_j, tables, consts, count, out, sms,
       stream);
+}
+
+// in: RS(204,188) codeword r at in + r * s_g bytes (204 contiguous bytes);
+// tables: as above; consts: B's fragments of the 1632 x 128 product;
+// count: int32[B]; out: uint8[B, 188].
+int rs_packets_launch(const void* in, long long s_g, int B,
+                      const void* tables, const void* consts, void* count,
+                      void* out, int sms, void* stream) {
+  return rsk::packets_launch<rsk::SyndMmaT<rsk::Rs204>, rsk::Rs204>(
+      in, s_g, B, tables, consts, count, out, sms, stream);
 }
 
 }  // extern "C"

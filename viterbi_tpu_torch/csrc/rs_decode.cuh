@@ -1,6 +1,9 @@
-// Kernel I's device code: the RS(120,110) decoder of RScheckSuperframe
-// with two epilogues, one for whole superframes and one for codewords.
-// csrc/rs_decode.cu holds the contract and the C entry points; the
+// Kernel I's device code: a Reed-Solomon decoder over GF(256), a template
+// over the code (`Rs120`, RS(120,110) of RScheckSuperframe with the DLL's
+// decoder; `Rs204`, RS(204,188) of EN 300 744 with the textbook bounded-
+// distance rule), with three epilogues: whole superframes, codewords, and
+// rows of packets. csrc/rs_decode.cu holds the contract and the C entry
+// points; the
 // syndrome form that ships (SyndMma, the tensor cores' binary product) is
 // here; csrc/probes/rs_synd.cu builds the same code with the other form,
 // for probes.rsform's comparison.
@@ -30,57 +33,87 @@
 
 namespace rsk {
 
-constexpr int kN = 120;          // bytes a shortened codeword
-constexpr int kK = 110;          // data bytes a codeword
-constexpr int kNRoots = 10;      // parity bytes, syndromes
 constexpr int kNN = 255;         // field elements less zero; log of zero
-constexpr int kPad = 135;        // shortening pad: RS(255,245) -> (120,110)
 constexpr int kAto = 768;        // pre-reduced antilog table entries
 constexpr int kTables = 1024;    // the antilog table, then index_of
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMinBlocks = 4;    // 65536 / (256 * 4): 64 registers a thread
 constexpr int kTile = 16;        // codewords a syndrome tile (an m16 tile)
 constexpr int kMinCap = 128;     // codewords a block stages, at least
-constexpr int kScratch = 64;     // a warp's bytes for the dirty path
 constexpr unsigned kFull = 0xffffffffu;
+
+// The codes, each shortened from a code of length 255 over the field of
+// x^8 + x^4 + x^3 + x^2 + 1, first root alpha^0, by kPad leading zero
+// bytes. kTextbook picks the decoder's rule where it is uncorrectable:
+//   false (the DLL's DECODE_RS): the Chien search over all 255 elements,
+//     -1 unless its roots number deg lambda; a root inside the pad is
+//     counted but changes no byte; omega's terms below deg lambda only; a
+//     root whose numerator is 0 is skipped;
+//   true (bounded distance): -1 where deg lambda > kNRoots / 2; the Chien
+//     search over the kN sent positions only, -1 unless its roots number
+//     deg lambda; every term of omega; -1 where any error value is 0.
+struct Rs120 {                   // RS(120,110) of a DAB+ superframe
+  static constexpr int kN = 120, kK = 110, kNRoots = 10, kPad = 135;
+  static constexpr bool kTextbook = false;
+  static constexpr int kMinBlocks = 4;   // 64 registers a thread
+};
+
+struct Rs204 {                   // RS(204,188) of EN 300 744 4.3.2
+  static constexpr int kN = 204, kK = 188, kNRoots = 16, kPad = 51;
+  static constexpr bool kTextbook = true;
+  static constexpr int kMinBlocks = 2;   // 128 registers a thread
+};
+
+// What follows from a code: its syndromes packed four to a word, the
+// k-steps of 256 bits that cover a codeword, a warp's scratch slots.
+template <class C>
+struct Shape {
+  static constexpr int kSyndWords = (C::kNRoots + 3) / 4;
+  static constexpr int kSteps = (8 * C::kN + 255) / 256;
+  static constexpr int kSlot = C::kNRoots + 1 <= 16 ? 16 : 32;
+  static constexpr int kScratch = 4 * kSlot;
+};
+
+// RS(120,110)'s constants by their old names (the probes read them)
+constexpr int kN = Rs120::kN;
+constexpr int kK = Rs120::kK;
+constexpr int kNRoots = Rs120::kNRoots;
+constexpr int kPad = Rs120::kPad;
+constexpr int kMinBlocks = Rs120::kMinBlocks;
+constexpr int kScratch = Shape<Rs120>::kScratch;
 
 __device__ __forceinline__ uint32_t mod255(uint32_t x) {
   return (x * 0x1010102u) >> 24;   // rschecksf.cpp:48-52, uint32 wrap
 }
 
-// Syndrome i from the three packed words (byte i % 4 of word i / 4).
-__device__ __forceinline__ uint32_t syndrome(uint32_t s0, uint32_t s1,
-                                             uint32_t s2, int i) {
-  const uint32_t w = i < 4 ? s0 : (i < 8 ? s1 : s2);
-  return (w >> (8 * (i & 3))) & 0xffu;
-}
-
 // Where the staged codewords lie: codeword c's byte j at off(c) + j * sj().
 // Interleaved (superframes as they arrive): superframe c / D, codeword
-// c % D, byte j at j * D; rows: codeword c's 120 bytes at c * 120.
-template <bool kInter>
+// c % D, byte j at j * D; rows: codeword c's kLen bytes at c * kLen.
+template <bool kInter, int kLen = kN>
 struct Geo {
+  static constexpr bool kInterleaved = kInter;
   int D;
   __device__ __forceinline__ int off(int c) const {
-    return kInter ? (c / D) * (D * kN) + c % D : c * kN;
+    return kInter ? (c / D) * (D * kLen) + c % D : c * kLen;
   }
   __device__ __forceinline__ int sj() const { return kInter ? D : 1; }
 };
 
-// A block's shared memory, kCap codewords (a multiple of 16) staged, at
-// offsets fixed at compile time from the one base (so no pointer takes a
-// register).
-template <int kFormBytes, int kCap>
+// A block's shared memory, kCap codewords (a multiple of 16) of code C
+// staged, at offsets fixed at compile time from the one base (so no
+// pointer takes a register).
+template <int kFormBytes, int kCap, class C = Rs120>
 struct Smem {
+  using Code = C;
+  static constexpr int kWords = Shape<C>::kSyndWords;
   static constexpr int kRaw = kTables + kFormBytes;
-  static constexpr int kBase = kRaw + kCap * kN;     // 16-byte aligned
+  static constexpr int kBase = kRaw + kCap * C::kN;  // 16-byte aligned
   static constexpr int kSynd = kBase + kCap * 8;
-  static constexpr int kCnt = kSynd + kCap * 12;
+  static constexpr int kCnt = kSynd + kCap * 4 * kWords;
   static constexpr int kAux = kCnt + kCap * 4;
   static constexpr int kMask = kAux + kCap * 4;
   static constexpr int kScr = kMask + kCap / kTile * 4;
-  static constexpr int kBytes = kScr + kWarps * kScratch;
+  static constexpr int kBytes = kScr + kWarps * Shape<C>::kScratch;
   static constexpr int kCapacity = kCap;
 
   uint8_t* p;
@@ -92,7 +125,7 @@ struct Smem {
   __device__ long long* base() const {
     return reinterpret_cast<long long*>(p + kBase);
   }
-  // the syndromes packed four to a word, three words a codeword
+  // the syndromes packed four to a word, kWords words a codeword
   __device__ uint32_t* synd() const {
     return reinterpret_cast<uint32_t*>(p + kSynd);
   }
@@ -107,7 +140,11 @@ struct Smem {
     return reinterpret_cast<uint32_t*>(p + kMask);
   }
   __device__ uint8_t* scratch(int warp) const {
-    return p + kScr + warp * kScratch;
+    return p + kScr + warp * Shape<C>::kScratch;
+  }
+  // syndrome i of staged codeword c (byte i % 4 of its word i / 4)
+  __device__ uint32_t syndrome(int c, int i) const {
+    return (synd()[kWords * c + (i >> 2)] >> (8 * (i & 3))) & 0xffu;
   }
 };
 
@@ -123,21 +160,21 @@ __device__ void fill(const S& s, const uint8_t* tables,
 }
 
 // ---- the dirty path: one warp, one codeword whose syndromes are not zero
-template <class S, bool kInter>
-__device__ void correct(const S& s, Geo<kInter> geo, int c, int warp,
-                        int lane) {
+template <class S, class G>
+__device__ void correct(const S& s, G geo, int c, int warp, int lane) {
+  using C = typename S::Code;
+  constexpr int kR = C::kNRoots;
+  constexpr int kSlot = Shape<C>::kSlot;
   const uint8_t* ato = s.ato();
   const uint8_t* iof = s.iof();
-  uint8_t* lgs = s.scratch(warp);               // lambda's logs, 11
-  uint8_t* ols = lgs + 16;                      // omega's logs, 10
-  uint8_t* rts = lgs + 32;                      // the roots, ascending
-  uint8_t* sls = lgs + 48;                      // the syndromes' logs, 10
-  const uint32_t s0 = s.synd()[3 * c], s1 = s.synd()[3 * c + 1],
-                 s2 = s.synd()[3 * c + 2];
+  uint8_t* lgs = s.scratch(warp);               // lambda's logs, kR + 1
+  uint8_t* ols = lgs + kSlot;                   // omega's logs, kR
+  uint8_t* rts = lgs + 2 * kSlot;               // the roots, ascending
+  uint8_t* sls = lgs + 3 * kSlot;               // the syndromes' logs, kR
   // field elements in log form (kNN for zero): a product is one lookup,
   // alpha^(log a + log b), as the reference's tables give it
-  if (lane < kNRoots) {
-    const uint32_t sv = syndrome(s0, s1, s2, lane);
+  if (lane < kR) {
+    const uint32_t sv = s.syndrome(c, lane);
     sls[lane] = static_cast<uint8_t>(sv ? iof[sv] : kNN);
   }
   __syncwarp();
@@ -149,13 +186,13 @@ __device__ void correct(const S& s, Geo<kInter> geo, int c, int warp,
   uint32_t b_log = lam_log;
   int el = 0;
 #pragma unroll 1
-  for (int r = 1; r <= kNRoots; ++r) {
+  for (int r = 1; r <= kR; ++r) {
     // discrepancy: XOR over i < r of lambda[i] * s[r - 1 - i]
     const uint32_t sl = lane < r ? sls[r - 1 - lane] : kNN;
     const uint32_t discr = __reduce_xor_sync(
         kFull, lam_log != kNN && sl != kNN ? ato[lam_log + sl] : 0u);
     uint32_t shift_b = __shfl_up_sync(kFull, b_log, 1);   // x * b(x)
-    if (lane == 0 || lane > kNRoots) shift_b = kNN;
+    if (lane == 0 || lane > kR) shift_b = kNN;
     if (discr) {                        // the same on every lane
       const uint32_t d_log = iof[discr];
       const bool swap = 2 * el <= r - 1;
@@ -172,28 +209,36 @@ __device__ void correct(const S& s, Geo<kInter> geo, int c, int warp,
   }
   const int deg =
       31 - __clz(static_cast<int>(__ballot_sync(kFull, lam != 0)));
-  if (lane <= kNRoots) lgs[lane] = static_cast<uint8_t>(lam_log);
+  if (C::kTextbook && deg > kR / 2) {        // beyond the code's reach
+    if (lane == 0) s.cnt()[c] = -1;
+    __syncwarp();
+    return;
+  }
+  if (lane <= kR) lgs[lane] = static_cast<uint8_t>(lam_log);
   __syncwarp();
-  uint32_t lg[kNRoots + 1];            // kNN for a zero coefficient
+  uint32_t lg[kR + 1];                 // kNN for a zero coefficient
 #pragma unroll
-  for (int j = 0; j <= kNRoots; ++j) lg[j] = lgs[j];
+  for (int j = 0; j <= kR; ++j) lg[j] = lgs[j];
 
-  // Chien: q(i) = XOR_j lambda[j] alpha^(i*j) at the elements lane + 1 +
-  // 32 k, 32 a round, until deg roots are found (a polynomial of degree
-  // deg has no more); a ballot and a prefix popcount order them
+  // Chien: q(i) = XOR_j lambda[j] alpha^(i*j) at the elements first + lane
+  // + 32 k, 32 a round (from alpha^1, or in the textbook rule from the
+  // first sent position's), until deg roots are found (a polynomial of
+  // degree deg has no more); a ballot and a prefix popcount order them
+  constexpr int kFirst = C::kTextbook ? C::kPad + 1 : 1;
+  constexpr int kRounds = (kNN - kFirst + 32) / 32;
   const uint32_t below = (1u << lane) - 1u;
   int count = 0;
 #pragma unroll 1
-  for (int k = 0; k < 8 && count < deg; ++k) {
-    const uint32_t i = lane + 1 + 32 * k;
+  for (int k = 0; k < kRounds && count < deg; ++k) {
+    const uint32_t i = kFirst + lane + 32 * k;
     uint32_t q = 1;                          // lambda[0] == 1
 #pragma unroll
-    for (int j = 1; j <= kNRoots; ++j)       // i * j mod 255, exact here
+    for (int j = 1; j <= kR; ++j)            // i * j mod 255, exact here
       if (lg[j] != kNN) q ^= ato[lg[j] + mod255(i * j)];
     const bool root = i <= kNN && q == 0;
     const uint32_t ballot = __ballot_sync(kFull, root);
     const int slot = count + __popc(ballot & below);
-    if (root && slot < kNRoots) rts[slot] = static_cast<uint8_t>(i);
+    if (root && slot < kR) rts[slot] = static_cast<uint8_t>(i);
     count += __popc(ballot);
   }
   if (count != deg) {                        // uncorrectable: unchanged
@@ -202,41 +247,53 @@ __device__ void correct(const S& s, Geo<kInter> geo, int c, int warp,
     return;
   }
 
-  // omega = s * lambda mod x^10: coefficient `lane` (< 10)
+  // omega = s * lambda mod x^kR: coefficient `lane` (< kR)
   uint32_t om = 0;
 #pragma unroll
-  for (int j = 0; j < kNRoots; ++j) {
-    if (j <= lane && lane < kNRoots && lg[j] != kNN) {
+  for (int j = 0; j < kR; ++j) {
+    if (j <= lane && lane < kR && lg[j] != kNN) {
       const uint32_t sl = sls[lane - j];
       if (sl != kNN) om ^= ato[sl + lg[j]];
     }
   }
-  if (lane < kNRoots) ols[lane] = static_cast<uint8_t>(om ? iof[om] : kNN);
+  if (lane < kR) ols[lane] = static_cast<uint8_t>(om ? iof[om] : kNN);
   __syncwarp();                              // the roots and omega's logs
 
-  // Forney: root `lane` (< count), its value XOR-ed into the staged byte
+  // Forney: root `lane` (< count); its value alpha^(log num1 + log num2 +
+  // 255 - log den) XOR-ed into the staged byte root - 1 - kPad
+  uint32_t value = 0, at = 0;
+  bool none = false;                         // a root whose num1 is 0
   if (lane < count) {
     const uint32_t root = rts[lane];
-    if (root >= kPad + 1) {                 // else inside the pad
+    if (root >= C::kPad + 1) {               // else inside the pad
       uint32_t num1 = 0;
 #pragma unroll
-      for (int i = 0; i < kNRoots; ++i) {   // i <= deg omega
+      for (int i = 0; i < kR; ++i) {        // i <= deg omega
         const uint32_t o = ols[i];
-        if (i < deg && o != kNN) num1 ^= ato[mod255(o + i * root)];
+        if ((C::kTextbook || i < deg) && o != kNN)
+          num1 ^= ato[mod255(o + i * root)];
       }
       if (num1) {
         const uint32_t num2 = ato[kNN - root];
         uint32_t den = 0;
-        const int top = (deg < kNRoots - 1 ? deg : kNRoots - 1) & ~1;
+        const int top = (deg < kR - 1 ? deg : kR - 1) & ~1;
 #pragma unroll
-        for (int i = 0; i < kNRoots; i += 2)
+        for (int i = 0; i < kR; i += 2)
           if (i <= top && lg[i + 1] != kNN)
             den ^= ato[mod255(lg[i + 1] + i * root)];
-        s.raw()[geo.off(c) + (root - 1 - kPad) * geo.sj()] ^=
-            ato[iof[num1] + iof[num2] + (kNN - iof[den])];
+        value = ato[iof[num1] + iof[num2] + (kNN - iof[den])];
+        at = root - 1 - C::kPad;
+      } else {
+        none = true;
       }
     }
   }
+  if (C::kTextbook && __ballot_sync(kFull, none)) {   // a zero value
+    if (lane == 0) s.cnt()[c] = -1;
+    __syncwarp();
+    return;
+  }
+  if (value) s.raw()[geo.off(c) + at * geo.sj()] ^= value;
   if (lane == 0) s.cnt()[c] = count;
   __syncwarp();                              // before the scratch is reused
 }
@@ -244,12 +301,12 @@ __device__ void correct(const S& s, Geo<kInter> geo, int c, int warp,
 // ---- the syndrome form that ships: the tensor cores' binary product
 // The A fragment's word: bytes j4 .. j4 + 3 of staged codeword c, byte
 // j4 + q in bits 8 q .. 8 q + 7 (bit a of byte j is k = 8 j + a).
-template <class S, bool kInter>
-__device__ __forceinline__ uint32_t row_word(const S& s, Geo<kInter> geo,
-                                             int c, int j4, int nc) {
-  if (c >= nc || j4 >= kN) return 0;
+template <class S, class G>
+__device__ __forceinline__ uint32_t row_word(const S& s, G geo, int c,
+                                             int j4, int nc) {
+  if (c >= nc || j4 >= S::Code::kN) return 0;
   const uint8_t* p = s.raw() + geo.off(c) + j4 * geo.sj();
-  if (!kInter) return *reinterpret_cast<const uint32_t*>(p);
+  if (!G::kInterleaved) return *reinterpret_cast<const uint32_t*>(p);
   const int d = geo.D;
   return static_cast<uint32_t>(p[0]) | static_cast<uint32_t>(p[d]) << 8
          | static_cast<uint32_t>(p[2 * d]) << 16
@@ -265,8 +322,12 @@ __device__ __forceinline__ void mma_and_popc(int (&acc)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-struct SyndMma {
-  static constexpr int kSmem = kNRoots * 4 * 32 * 8;   // B's fragments
+template <class C>
+struct SyndMmaT {
+  static constexpr int kR = C::kNRoots;
+  static constexpr int kSteps = Shape<C>::kSteps;
+  static constexpr int kWords = Shape<C>::kSyndWords;
+  static constexpr int kSmem = kR * kSteps * 32 * 8;   // B's fragments
 
   static __device__ void fill(uint8_t* form, const uint8_t*,
                               const uint4* consts) {
@@ -279,14 +340,13 @@ struct SyndMma {
   // (the m16n8k256 layout: a0 / a2 rows g, a1 / a3 rows g + 8; a0, a1 k
   // = 32 tig .. +31 of the step, a2, a3 k + 128; the sum's c0, c1 row g,
   // columns 2 tig and 2 tig + 1, c2, c3 row g + 8).
-  template <class S, bool kInter>
-  static __device__ void tile(const S& s, Geo<kInter> geo, int t, int nc,
-                              int lane) {
+  template <class S, class G>
+  static __device__ void tile(const S& s, G geo, int t, int nc, int lane) {
     const int g = lane >> 2, tig = lane & 3;
     const int c0 = kTile * t + g, c1 = c0 + 8;
-    uint32_t a[4][4];
+    uint32_t a[kSteps][4];
 #pragma unroll
-    for (int st = 0; st < 4; ++st) {
+    for (int st = 0; st < kSteps; ++st) {
       const int j = 32 * st + 4 * tig;
       a[st][0] = row_word(s, geo, c0, j, nc);
       a[st][1] = row_word(s, geo, c1, j, nc);
@@ -294,38 +354,44 @@ struct SyndMma {
       a[st][3] = row_word(s, geo, c1, j + 16, nc);
     }
     const uint2* frag = reinterpret_cast<const uint2*>(s.form());
-    uint32_t w0[3] = {0, 0, 0}, w1[3] = {0, 0, 0};   // rows g, g + 8
+    uint32_t w0[kWords], w1[kWords];                 // rows g, g + 8
 #pragma unroll
-    for (int i = 0; i < kNRoots; ++i) {
+    for (int k = 0; k < kWords; ++k) w0[k] = w1[k] = 0;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
       int acc[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int st = 0; st < 4; ++st)
-        mma_and_popc(acc, a[st], frag[(4 * i + st) * 32 + lane]);
+      for (int st = 0; st < kSteps; ++st)
+        mma_and_popc(acc, a[st], frag[(kSteps * i + st) * 32 + lane]);
       // syndrome i's bits 2 tig and 2 tig + 1, packed four syndromes a word
       const int sh = 8 * (i & 3) + 2 * tig;
       w0[i >> 2] |= ((acc[0] & 1u) | (acc[1] & 1u) << 1) << sh;
       w1[i >> 2] |= ((acc[2] & 1u) | (acc[3] & 1u) << 1) << sh;
     }
+    uint32_t any0 = 0, any1 = 0;
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
+      for (int k = 0; k < kWords; ++k) {
         w0[k] |= __shfl_xor_sync(kFull, w0[k], off);
         w1[k] |= __shfl_xor_sync(kFull, w1[k], off);
       }
     }
-    const bool dirty0 = c0 < nc && (w0[0] | w0[1] | w0[2]) != 0;
-    const bool dirty1 = c1 < nc && (w1[0] | w1[1] | w1[2]) != 0;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      any0 |= w0[k];
+      any1 |= w1[k];
+    }
+    const bool dirty0 = c0 < nc && any0 != 0;
+    const bool dirty1 = c1 < nc && any1 != 0;
     if (tig == 0 && c0 < nc) {
-      s.synd()[3 * c0] = w0[0];
-      s.synd()[3 * c0 + 1] = w0[1];
-      s.synd()[3 * c0 + 2] = w0[2];
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) s.synd()[kWords * c0 + k] = w0[k];
       s.cnt()[c0] = 0;
     }
     if (tig == 1 && c1 < nc) {
-      s.synd()[3 * c1] = w1[0];
-      s.synd()[3 * c1 + 1] = w1[1];
-      s.synd()[3 * c1 + 2] = w1[2];
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) s.synd()[kWords * c1 + k] = w1[k];
       s.cnt()[c1] = 0;
     }
     const uint32_t ballot = __ballot_sync(
@@ -341,9 +407,11 @@ struct SyndMma {
   }
 };
 
+using SyndMma = SyndMmaT<Rs120>;
+
 // Step 2 on the nc staged codewords: the syndromes, a warp a tile.
-template <class Synd, class S, bool kInter>
-__device__ void syndromes(const S& s, Geo<kInter> geo, int nc) {
+template <class Synd, class S, class G>
+__device__ void syndromes(const S& s, G geo, int nc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles = (nc + kTile - 1) / kTile;
   for (int t = warp; t < tiles; t += kWarps) Synd::tile(s, geo, t, nc, lane);
@@ -351,8 +419,8 @@ __device__ void syndromes(const S& s, Geo<kInter> geo, int nc) {
 
 // Step 3: the dirty codewords in order, the r-th to warp r % kWarps;
 // returns their number.
-template <class S, bool kInter>
-__device__ int correct_dirty(const S& s, Geo<kInter> geo, int nc) {
+template <class S, class G>
+__device__ int correct_dirty(const S& s, G geo, int nc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles = (nc + kTile - 1) / kTile;
   int rank = 0;
@@ -367,8 +435,8 @@ __device__ int correct_dirty(const S& s, Geo<kInter> geo, int nc) {
   return rank;
 }
 
-template <class Synd, class S, bool kInter>
-__device__ void decode_staged(const S& s, Geo<kInter> geo, int nc) {
+template <class Synd, class S, class G>
+__device__ void decode_staged(const S& s, G geo, int nc) {
   syndromes<Synd>(s, geo, nc);
   __syncthreads();
   correct_dirty(s, geo, nc);
@@ -669,6 +737,65 @@ int codewords_launch(const void* in, int elem_bytes, int B, int Din,
     return launch(rs_codewords_kernel<Synd, int32_t>,
                   static_cast<const int32_t*>(in));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Packets: codeword r of code C at in + r * s_g (kN bytes, contiguous) ->
+// count[r], out[r] (its kK data bytes as decoded, as received where the
+// count is -1); TC codewords a block at a time.
+template <class Synd, class C, int kCap>
+__global__ void __launch_bounds__(kThreads, C::kMinBlocks)
+rs_packets_kernel(const uint8_t* __restrict__ in, long long s_g, int B,
+                  int TC, const uint8_t* __restrict__ tables,
+                  const uint4* __restrict__ consts,
+                  int32_t* __restrict__ count, uint8_t* __restrict__ out) {
+  const Smem<Synd::kSmem, kCap, C> s{dyn_smem()};
+  fill<Synd>(s, tables, consts);
+  const Geo<false, C::kN> geo{1};
+  const int w_in = vec_width(reinterpret_cast<unsigned long long>(in)
+                             | static_cast<unsigned long long>(s_g)
+                             | static_cast<unsigned long long>(C::kN));
+  const int w_out = vec_width(reinterpret_cast<unsigned long long>(out)
+                              | static_cast<unsigned long long>(C::kK)
+                              | static_cast<unsigned long long>(C::kN));
+  // (the tables are read after the staging's barrier)
+  for (long long n0 = static_cast<long long>(blockIdx.x) * TC; n0 < B;
+       n0 += static_cast<long long>(gridDim.x) * TC) {
+    const int nc = B - n0 < TC ? static_cast<int>(B - n0) : TC;
+    stage_superframes(s, in + n0 * s_g, s_g, C::kN, nc, w_in);
+    __syncthreads();
+    decode_staged<Synd>(s, geo, nc);
+    for (int c = threadIdx.x; c < nc; c += kThreads)
+      count[n0 + c] = s.cnt()[c];
+    write_audio(s, out + n0 * C::kK, C::kN, C::kK, 1, nc, false, w_out);
+    __syncthreads();                       // before the next staging
+  }
+}
+
+template <class Synd, class C>
+int packets_launch(const void* in, long long s_g, int B, const void* tables,
+                   const void* consts, void* count, void* out, int sms,
+                   void* stream) {
+  if (B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  constexpr int cap = kMinCap;
+  constexpr size_t smem = Smem<Synd::kSmem, cap, C>::kBytes;
+  const auto kernel = rs_packets_kernel<Synd, C, cap>;
+  const int occ = occupancy(kernel, smem);
+  if (occ < 0) return -occ;
+  if (occ == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // codewords a block at a time: a multiple of 16 that spreads the batch
+  // over the resident blocks, within the staged capacity
+  const long long resident = static_cast<long long>(sms) * occ;
+  long long TC = (B + resident - 1) / resident;
+  TC = (TC + kTile - 1) / kTile * kTile;
+  if (TC > cap) TC = cap;
+  const long long iters = (B + TC - 1) / TC;
+  const int grid = static_cast<int>(iters < resident ? iters : resident);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), s_g, B, static_cast<int>(TC),
+      static_cast<const uint8_t*>(tables), static_cast<const uint4*>(consts),
+      static_cast<int32_t*>(count), static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace rsk

@@ -23,6 +23,8 @@ import torch
 
 from .. import constants as C
 from .. import golden
+from ..reference import punctured as ref_punctured
+from ..reference import tdmb as ref_tdmb
 
 EBN0_DB = 3.0      # reference operating point (viterbi-benchmark.cpp:60)
 GAIN = 32.0
@@ -124,6 +126,36 @@ def make_superframes(n: int, bitrate_kbps: int, seed: int = 0,
         syms[i:i + step] = awgn_soft_symbols(
             encode_batch(bits[i:i + step]), rng, ebn0_db)
     return audio, syms.reshape(n, 5, width)
+
+
+def make_ts_streams(n_streams: int, cifs: int, bitrate_kbps: int,
+                    seed: int = 0, esn0_db: float = -1.0, bad=(),
+                    protection=("A", 3)) -> np.ndarray:
+    """Punctured soft bytes uint8[n_streams, cifs, kept] of T-DMB transport
+    streams at ``bitrate_kbps`` (68 p kbit/s, p packets a CIF): random
+    188-byte messages -> RS(204,188) (12 byte errors in each packet
+    index of ``bad``) -> the I = 12 interleaver from zeros -> bits ->
+    encoder -> ``protection``'s puncturing -> AWGN at ``esn0_db`` on
+    every sent symbol. The outer code and interleaver are the plain
+    reference's (``reference.tdmb``), the masks ``reference.punctured``'s.
+    """
+    rng = np.random.default_rng(seed)
+    framebits = 24 * bitrate_kbps
+    p = framebits // 8 // ref_tdmb.N
+    keep = ref_punctured.mask(bitrate_kbps, protection).numpy()
+    out = []
+    for _ in range(n_streams):
+        msgs = rng.integers(0, 256, (cifs * p, ref_tdmb.K), dtype=np.uint8)
+        cws = np.stack([ref_tdmb.rs_encode(m) for m in msgs])
+        for m in bad:
+            pos = rng.choice(ref_tdmb.N, 12, replace=False)
+            cws[m, pos] ^= rng.integers(1, 256, 12).astype(np.uint8)
+        bits = np.unpackbits(ref_tdmb.interleave(cws.reshape(-1))) \
+            .reshape(cifs, framebits)
+        soft = awgn_soft_symbols(encode_batch(bits), rng,
+                                 ebn0_db=esn0_db + 10.0 * np.log10(C.RATE))
+        out.append(soft[:, keep].astype(np.uint8))
+    return np.stack(out)
 
 
 def ber_fer(decoded_bytes: np.ndarray, bits: np.ndarray):

@@ -135,6 +135,8 @@ _ARGTYPES = {
         "rs_superframes_launch": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P,
                                   _I, _P],
         "depuncture_launch": [_P, _L, _I, _P, _I, _I, _P, _I, _P],
+        "rs_packets_launch": [_P, _L, _I, _P, _P, _P, _P, _I, _P],
+        "deinterleave_launch": [_P, _L, _L, _I, _P, _P, _P, _I, _P],
     },
     PROBES: {
         "kablate_launch": [_P, _L, _L, _I, _P, _I, _I, _I, _P, _P, _I, _I,
@@ -282,6 +284,8 @@ TB_WORDS = Kernel(MAIN, "tb_words_launch", "tb_words")
 RS_DECODE = Kernel(MAIN, "rs_decode_launch", "rs_decode")
 RS_SUPERFRAMES = Kernel(MAIN, "rs_superframes_launch", "rs_superframes")
 DEPUNCTURE = Kernel(MAIN, "depuncture_launch", "depuncture")
+RS_PACKETS = Kernel(MAIN, "rs_packets_launch", "rs_packets")
+DEINTERLEAVE = Kernel(MAIN, "deinterleave_launch", "deinterleave")
 KABLATE = Kernel(PROBES, "kablate_launch", "kablate")
 KDTYPE_OP = Kernel(PROBES, "kdtype_op_launch", "kdtype_op")
 KDTYPE_CHAIN = Kernel(PROBES, "kdtype_chain_launch", "kdtype_chain")

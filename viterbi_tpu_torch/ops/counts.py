@@ -1,5 +1,6 @@
-"""The launch counts of kernels A-D, I and J (I by its two entries,
-codewords and superframes), read from the launch path: each
+"""The launch counts of kernels A-D and I-K (I by its three entries,
+codewords, superframes and RS(204,188) packets), read from the launch
+path: each
 ``_build.Kernel`` adds one to its tally where the card accepts a launch
 (kernel A's by form, its lanes a frame), and nothing else counts. A
 caller sets them to 0 before a path and reads them after it, to show
@@ -12,10 +13,12 @@ from ..runtime import calllog
 from . import _build
 
 #: kernels A-D and J by their rows' names in chip_smoke.py's kernels line,
-#: and kernel I's two entries (its row, ``rs_decode``, counts both)
+#: kernel I's three entries (its row, ``rs_decode``, counts the first two)
+#: and kernel K
 KERNELS = {k.name: k for k in (
     _build.ACS_REGS, _build.ACS_WORDS, _build.TB_WALK, _build.TB_WORDS,
-    _build.RS_DECODE, _build.RS_SUPERFRAMES, _build.DEPUNCTURE)}
+    _build.RS_DECODE, _build.RS_SUPERFRAMES, _build.DEPUNCTURE,
+    _build.RS_PACKETS, _build.DEINTERLEAVE)}
 
 
 def zero_launches() -> None:
@@ -24,12 +27,12 @@ def zero_launches() -> None:
 
 
 def launches() -> dict:
-    """Launches of kernels A-D, I and J since ``zero_launches``."""
+    """Launches of kernels A-D and I-K since ``zero_launches``."""
     return {name: k.launches for name, k in KERNELS.items()}
 
 
 def total() -> int:
-    """Launches of kernels A-D, I and J, all entries together: read before
+    """Launches of kernels A-D and I-K, all entries together: read before
     and after a stage, the stage's launches."""
     return sum([k.launches for k in KERNELS.values()])
 

@@ -80,21 +80,26 @@ def _bit_matrices():
 _SYND_M, _CHIEN_M = _bit_matrices()
 
 
-def _synd_fragments() -> np.ndarray:
-    """``_SYND_M`` as kernel I's tensor cores read it: the B operand of
-    ``mma.m16n8k256.row.col...b1.and.popc``, ``uint32[10, 4, 32, 2]``.
+def _synd_fragments(synd: np.ndarray = _SYND_M,
+                    nroots: int = C.RS_NROOTS) -> np.ndarray:
+    """A syndrome matrix (``_SYND_M``, or ``_SYND204_M``) as kernel I's
+    tensor cores read it: the B operand of
+    ``mma.m16n8k256.row.col...b1.and.popc``, ``uint32[nroots, steps, 32,
+    2]``.
 
-    The codeword's 960 bits (bit a of byte j at k = 8 j + a) are padded
-    to 1024, four k-steps of 256; n-tile i holds syndrome i's eight bits
-    (columns 8 i .. 8 i + 7). Lane l (group g = l // 4, tig = l % 4) holds
-    column g and, in word r, k = 256 step + 128 r + 32 tig + bit."""
-    m = np.zeros((1024, C.RS_NROOTS * 8), np.uint64)
-    m[:C.RS_N * 8] = _SYND_M
+    The codeword's bits (bit a of byte j at k = 8 j + a; 960 for
+    RS(120,110)) are padded to whole k-steps of 256 (four; seven for
+    RS(204,188)); n-tile i holds syndrome i's eight bits (columns 8 i ..
+    8 i + 7). Lane l (group g = l // 4, tig = l % 4) holds column g and,
+    in word r, k = 256 step + 128 r + 32 tig + bit."""
+    steps = -(-synd.shape[0] // 256)
+    m = np.zeros((256 * steps, nroots * 8), np.uint64)
+    m[:synd.shape[0]] = synd
     lane = np.arange(32)
     bit = np.arange(32, dtype=np.uint64)
-    frag = np.zeros((C.RS_NROOTS, 4, 32, 2), np.uint64)
-    for i in range(C.RS_NROOTS):
-        for step in range(4):
+    frag = np.zeros((nroots, steps, 32, 2), np.uint64)
+    for i in range(nroots):
+        for step in range(steps):
             for r in range(2):
                 k = (256 * step + 128 * r + 32 * (lane & 3))[:, None] \
                     + np.arange(32)[None, :]                  # [lane, bit]
@@ -548,3 +553,174 @@ def rs_check_superframe(p: torch.Tensor, rs_dims: int):
     errors, out, n_ok = rs_check_superframes(p.reshape(1, -1), rs_dims,
                                              zero_after_fail=True, out=views)
     return errors[0], out[0], n_ok[0]
+
+
+# --------------------------------------------------------------------------
+# RS(204,188): the outer code of an MPEG-2 transport stream in DAB stream
+# mode (ETSI TS 102 427, EN 300 744 clause 4.3.2)
+# --------------------------------------------------------------------------
+
+#: RS(204,188, t = 8): the field and first root of RS(120,110), sixteen
+#: roots, shortened from RS(255,239) by 51 leading zero bytes
+P_N, P_K, P_NROOTS = 204, 188, 16
+P_PAD = C.RS_NN - P_N
+P_T = P_NROOTS // 2
+
+
+def _packet_matrices():
+    """GF(2) matrices of RS(204,188), as ``_bit_matrices``: (SYND
+    [1632, 128]: bit b of syndrome i from bit a of byte j; ROOTS [136,
+    1632]: bit b of lambda(alpha^(p + 52)) at sent position p from bit a
+    of lambda's coefficient k; OMEGA [128, 1632]: omega(alpha^(p + 52))
+    from omega's 16 coefficients; DERIV [64, 1632]: lambda'(alpha^(p +
+    52)) from lambda's odd coefficients 1, 3, .., 15)."""
+    a = np.arange(8)
+
+    def bits(e):                      # [..., 8 a, ...] exponents -> bits b
+        v = _ATO_NP[e % 255].astype(np.int64)
+        return (v[..., None] >> a) & 1
+
+    j = np.arange(P_N)
+    i = np.arange(P_NROOTS)
+    synd = bits(a[None, :, None] + i[None, None, :] * (P_N - 1 - j)[:, None,
+                                                                    None])
+    synd = synd.reshape(P_N * 8, P_NROOTS * 8)
+    e = np.arange(P_N) + P_PAD + 1                       # the sent roots
+
+    def at_roots(powers):             # powers [n] of x -> [n * 8, 204 * 8]
+        m = bits(a[None, :, None] + powers[:, None, None] * e[None, None, :])
+        return m.reshape(len(powers) * 8, P_N * 8)
+    return (synd.astype(np.uint8),
+            at_roots(np.arange(P_NROOTS + 1)).astype(np.uint8),
+            at_roots(np.arange(P_NROOTS)).astype(np.uint8),
+            at_roots(np.arange(0, P_NROOTS, 2)).astype(np.uint8))
+
+
+_SYND204_M, _ROOTS204_M, _OMEGA204_M, _DERIV204_M = _packet_matrices()
+_SYND204_FRAGMENTS_NP = _synd_fragments(_SYND204_M, P_NROOTS)
+
+
+@functools.lru_cache(maxsize=8)
+def _packet_tables(device: torch.device) -> dict:
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+    return {"synd": t(_SYND204_M), "roots": t(_ROOTS204_M),
+            "omega": t(_OMEGA204_M), "deriv": t(_DERIV204_M),
+            "bit": t(np.arange(8), torch.int64),
+            "idx": t(np.arange(P_NROOTS + 1), torch.int64),
+            "x": t(_ATO_NP[(255 - (np.arange(P_N) + P_PAD + 1)) % 255],
+                   torch.int64)}
+
+
+def _gf2_bytes(bits: torch.Tensor, m: torch.Tensor, n: int) -> torch.Tensor:
+    """Bytes [B, n] of the parity product of 0/1 ``bits`` [B, K] with
+    ``m`` [K, 8 n] (float32 holds every count up to K <= 1632)."""
+    prod = _gf2_matmul(bits, m).reshape(bits.shape[0], n, 8)
+    return (prod << torch.arange(8, device=bits.device)).sum(dim=-1)
+
+
+def _check_packets(cw: torch.Tensor) -> None:
+    if cw.dim() != 2 or cw.shape[1] != P_N:
+        raise ValueError(f"codewords must be [B, {P_N}], got "
+                         f"{list(cw.shape)}")
+
+
+def rs_decode_packets_plain(cw: torch.Tensor):
+    """``rs_decode_packets`` in plain torch on any device: the syndromes,
+    the locator at the sent positions, omega and lambda' there as GF(2)
+    products; Berlekamp-Massey in sixteen masked rounds through the
+    reference's tables; every step for every codeword. Kernel I's
+    packets entry's plain version."""
+    _check_packets(cw)
+    B, dev = cw.shape[0], cw.device
+    gf = _Table(_device_tables(dev))
+    T = _packet_tables(dev)
+    data = cw.to(torch.int64) & 0xFF
+    s = _gf2_bytes(_byte_bits(data, T["bit"]), T["synd"], P_NROOTS)
+    dirty = (s != 0).any(dim=1)
+
+    lam = torch.zeros((B, P_NROOTS + 1), dtype=torch.int64, device=dev)
+    lam[:, 0] = 1
+    b = lam.clone()
+    el = torch.zeros(B, dtype=torch.int64, device=dev)
+    zcol = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    s_rev = s.flip(1)
+    for r in range(1, P_NROOTS + 1):
+        discr = _xor_reduce(gf.mul(lam[:, :r], s_rev[:, P_NROOTS - r:]))
+        shift_b = torch.cat([zcol, b[:, :-1]], dim=1)
+        upd = (2 * el <= r - 1) & (discr != 0)
+        b = torch.where(upd[:, None],
+                        gf.mul(lam, gf.inv(discr)[:, None]), shift_b)
+        lam = lam ^ gf.mul(discr[:, None], shift_b)
+        el = torch.where(upd, r - el, el)
+    nu = torch.where(lam != 0, T["idx"], 0).amax(dim=1)
+
+    at = _gf2_bytes(_byte_bits(lam, T["bit"]), T["roots"], P_N)  # [B, 204]
+    is_root = at == 0
+    # omega = s * lambda mod x^16, every coefficient
+    k = T["idx"][:P_NROOTS]
+    pair = k[None, :] <= k[:, None]                    # [i, j]: j <= i
+    terms = gf.mul(s[:, torch.where(pair, k[:, None] - k[None, :], 0)],
+                   lam[:, None, :P_NROOTS])
+    omega = _xor_reduce(torch.where(pair, terms, 0))   # [B, 16]
+    num = _gf2_bytes(_byte_bits(omega, T["bit"]), T["omega"], P_N)
+    den = _gf2_bytes(_byte_bits(lam[:, 1::2], T["bit"]), T["deriv"], P_N)
+    value = gf.mul(gf.mul(T["x"].expand(B, P_N), num), gf.inv(den))
+    ok = dirty & (nu <= P_T) & (is_root.sum(dim=1) == nu) & \
+        ~(is_root & (num == 0)).any(dim=1)
+    count = torch.where(dirty, torch.where(ok, nu, -1), 0)
+    fixed = torch.where(ok[:, None], data ^ torch.where(is_root, value, 0),
+                        data)
+    return count.to(torch.int32), fixed[:, :P_K].to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=8)
+def _packet_consts(device: torch.device) -> tuple:
+    """Kernel I's constants for RS(204,188) on ``device``: the field's
+    tables, B's fragments of the 1632 x 128 product."""
+    return (torch.from_numpy(_KERNEL_TABLES_NP).to(device),
+            torch.from_numpy(_SYND204_FRAGMENTS_NP.view(np.int32))
+            .to(device))
+
+
+def rs_decode_packets(cw: torch.Tensor):
+    """Decode RS(204,188) codewords, the rule of ETSI EN 300 744 4.3.2's
+    code as a bounded-distance decoder:
+
+    1. syndromes S_i = r(alpha^i), i = 0 .. 15 (byte j the coefficient of
+       x^(203 - j)); all zero: count 0;
+    2. Berlekamp-Massey gives lambda of degree nu; nu > 8: uncorrectable;
+    3. the Chien search over the 204 sent positions only (position p the
+       root alpha^(p + 52)); uncorrectable unless the roots number nu;
+    4. Forney for a first root alpha^0: omega = S lambda mod x^16, the
+       value X omega(alpha^i) / lambda'(alpha^i), X = alpha^(-i);
+       uncorrectable where any value is zero;
+    5. an uncorrectable codeword comes back as received with count -1;
+       else with its values added, count nu.
+
+    ``cw``: uint8[B, 204] (on the CPU any integer type, low bytes), rows
+    any distance apart, bytes contiguous. Returns (count int32[B], data
+    uint8[B, 188]) on its device. Kernel I's packets entry on a CUDA
+    tensor, one launch; ``rs_decode_packets_plain`` on a CPU tensor."""
+    if cw.device.type == "cpu":
+        return rs_decode_packets_plain(cw)
+    _card_only(cw, "rs_decode_packets")
+    _check_packets(cw)
+    if cw.dtype != torch.uint8:
+        raise TypeError(f"rs_decode_packets: kernel I reads uint8 "
+                        f"codewords, got {cw.dtype}")
+    if cw.shape[0] and cw.stride(1) != 1:
+        raise ValueError("rs_decode_packets: a codeword's bytes must be "
+                         "contiguous")
+    B, dev = cw.shape[0], cw.device
+    count = torch.empty(B, dtype=torch.int32, device=dev)
+    data = torch.empty((B, P_K), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return count, data
+    tables, frags = _packet_consts(dev)
+    _build.RS_PACKETS.launch(
+        dev, cw.data_ptr(), cw.stride(0) if B > 1 else P_N, B,
+        tables.data_ptr(), frags.data_ptr(), count.data_ptr(),
+        data.data_ptr(), _sms(dev.index))
+    return count, data

@@ -324,8 +324,11 @@ class _Call:
     def __init__(self, sp: Span, kind: str, shape: dict, symbols, source):
         self.kind = kind
         self.shape = shape
-        arr = np.asarray(symbols)
-        self.nbytes = arr.nbytes
+        if isinstance(symbols, torch.Tensor):     # resident on its device
+            self.nbytes = symbols.numel() * symbols.element_size()
+        else:
+            symbols = np.asarray(symbols)
+            self.nbytes = symbols.nbytes
         if source is None:
             source = symbols
         base = source if isinstance(source, np.ndarray) else None
@@ -348,6 +351,8 @@ class _Call:
             thr["calls"] += 1
             thr["last_seen"] = now
         if _state["symbols"]:
+            arr = symbols.cpu().numpy() \
+                if isinstance(symbols, torch.Tensor) else symbols
             np.save(os.path.join(_state["sym_dir"],
                                  f"{sp.request:08d}_{kind}.npy"), arr)
 

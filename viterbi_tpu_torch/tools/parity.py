@@ -10,7 +10,7 @@ C with one lane and four lanes a frame, kernel B at 1 to 32 segments a
 frame, at the JAX cells' frame sizes: each against its plain version and
 the decode against golden), ``torch_scan_small_frames`` (first call at a
 fresh size against a warm one), ``rs`` (superframes and fuzz codewords),
-``tailbiting``, ``punctured``, ``packed_bt``, ``large_batch_blocked`` (C +
+``tailbiting``, ``punctured`` (with the T-DMB chain), ``packed_bt``, ``large_batch_blocked`` (C +
 D and C + the blocked walk at B 512-1024), ``superframe_chain``,
 ``streaming_1chip``, ``arbitrary_framebits`` (off the byte grid, through
 the API) and ``sharded_ensemble_chain`` (over two spawned ranks). On a
@@ -210,7 +210,32 @@ def punctured(dev, quick: bool) -> dict:
         torch.from_numpy(received.astype(np.int32)).to(dev), kbps, level,
         prof)
     return dict(frames=n, profile=f"EEP-{prof} level {level} {kbps}kbps",
-                mismatch_frames=_bad_frames(out, expect))
+                mismatch_frames=_bad_frames(out, expect),
+                **ts_streams(dev, quick))
+
+
+def ts_streams(dev, quick: bool) -> dict:
+    """The T-DMB chain (kernels J, A, B, K and kernel I's RS(204,188)
+    entry on a card) on two transport streams at 136 kbit/s EEP-3A over
+    14 CIFs (28 in the full run), past the eleven packets of zero fill so
+    that RS meets corrected and uncorrectable packets, fresh and then
+    continued with the state, against the plain reference
+    (``reference.tdmb``): the packets, counts and state that differ."""
+    from ..models import tdmb
+    from ..reference import tdmb as ref_tdmb
+    kbps, cifs = 136, 14 if quick else 28
+    rx = channel.make_ts_streams(2, cifs, kbps, seed=78, bad=(1,))
+    want = ref_tdmb.decode_ts_streams(rx, kbps)
+    x = torch.from_numpy(rx).to(dev)
+    first = tdmb.decode_ts_streams(x[:, :cifs // 2], kbps)
+    last = tdmb.decode_ts_streams(x[:, cifs // 2:], kbps, state=first[2])
+    got = (torch.cat([first[0], last[0]], 1), torch.cat([first[1], last[1]],
+                                                        1), last[2])
+    return dict(ts_streams=2, ts_cifs=cifs,
+                ts_corrected=int((want[1] > 0).sum()),
+                ts_failed=int((want[1] == -1).sum()), mismatch_ts=sum(
+                    int(not torch.equal(g.cpu(), w))
+                    for g, w in zip(got, want)))
 
 
 def packed_bt(dev, quick: bool) -> dict:
@@ -363,7 +388,8 @@ def arbitrary_framebits(quick: bool) -> dict:
 def run(quick: bool = False, device=None, bitrates=BITRATES,
         large=LARGE) -> dict:
     """Every section; ``ok`` only if none has a mismatch and, on a card,
-    kernels A to D each launched."""
+    every kernel of ``ops.counts`` launched (A-D, I's three entries, J
+    and K)."""
     from ..runtime import dispatch
     dev = strict_device(device)
     api.initialize()
